@@ -10,13 +10,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. build — every CUDA source of the port, one ``nvcc`` each, in parallel.
 3. kernels — each of the four kernels against its plain PyTorch version
    at the main path's shapes (C=4096, K=16, d=3, a buffer of m=8192
-   signals, unmasked and masked to m_t=64) on a pool grown by a short
-   plain run: bitwise where the contract says so (Find Winners ids where
-   the three nearest distances are more than 1e-4 apart, its distances
-   within rtol=2e-4, atol=1e-5; the neighbor sums of the accumulator
-   within rtol=1e-6, atol=1e-7), and bitwise repeatable. Times of the
-   kernel, its plain version and, where one PyTorch call computes the
-   same function, that call; and the bound.
+   signals, unmasked, masked to the m-schedule's m_t = next_pow2(n_active)
+   as the main path hands it, and masked to m_t=64) on a pool grown by a
+   short plain run: bitwise where the contract says so (Find Winners ids
+   where the three nearest distances are more than 1e-4 apart, its
+   distances within rtol=2e-4, atol=1e-5; the neighbor sums of the
+   accumulator within rtol=1e-6, atol=1e-7), and bitwise repeatable.
+   Times of the kernel (the lock and the accumulators at both the full
+   and the main path's masked buffer), its plain version and, where one
+   PyTorch call computes the same function, that call; the bound; the
+   device kernels one call launches (``torch.profiler``), which must be
+   the ones ``DEVICE_KERNELS`` names; and, as the floor of a launch-bound
+   kernel, the time of one launch of a one-element ``fill_``.
 4. main path — ``Session(RunSpec())`` (variant ``multi``) and
    ``variant="multi-fused"`` at the full default geometry through the
    ``cuda-full`` backend, with every launch counter set to 0 before and
@@ -57,6 +62,16 @@ PAIRS, PAIR_ITERS = 5, 128   # cuda-full vs reference timing pairs
 GATE = dict(capacity=768, iterations=1500, jax_chi=2, jax_units=94,
             jax_qe=0.02538)
 
+# The device kernels that one call of each wrapper launches, by their
+# names in the CUDA sources; the profile phase sums the port's kernels
+# over these names.
+DEVICE_KERNELS = {
+    "find_winners": ("find_winners_kernel",),
+    "winner_lock": ("lock_tile_kernel",),
+    "update_accum": ("owner_scatter_kernel", "accum_group_kernel"),
+    "edge_age": ("edge_age_kernel",),
+}
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 (no tensor core)
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
@@ -91,6 +106,21 @@ def device_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_launches(fn) -> list:
+    """Names of the device kernels that one ``fn()`` launches, from
+    ``torch.profiler`` (empty if it records no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -159,6 +189,7 @@ def phase_kernels():
                                              stable_units,
                                              update_phase_inputs)
     from repro_torch.core.gson.sampling import make_sampler
+    from repro_torch.core.gson.superstep import next_pow2
     from repro_torch.kernels.find_winners import kernel as fwk
     from repro_torch.kernels.update_phase import kernel as upk
 
@@ -196,12 +227,15 @@ def phase_kernels():
         err=float((d2k - d2p).abs().max()), bound=b, by=by,
         note=f"ids equal on {int(ok.sum())}/{M} tie-free rows")
 
-    # ---- B2..B4 on the main path's inputs, unmasked and masked
+    # ---- B2..B4 on the main path's inputs: the full buffer, the buffer
+    # masked as the main path's m-schedule masks it, and m_t = 64
     wid, sid, d2b, _ = find_winners_reference(sig, state.w, act)
     prio = torch.randperm(M, generator=g, device=dev, dtype=torch.int32)
     stable = stable_units(state, params)
     errs = {"winner_lock": 0.0, "update_accum": 0.0, "edge_age": 0.0}
-    for m_t in (M, 64):
+    m_main = min(next_pow2(n_act), M)
+    main_fns = {}   # B2 and B3 on the buffer as the main path hands it
+    for m_t in dict.fromkeys((M, m_main, 64)):
         mask = torch.arange(M, device=dev) < m_t
         prio_m = torch.where(mask, prio, upk.BIG_PRIO)
         largs = (wid[None].contiguous(), prio_m[None].contiguous(), C)
@@ -237,6 +271,9 @@ def phase_kernels():
         n_sel = int(selected.sum())
         log(f"  m_t={m_t}: {n_sel} lock survivors, "
             f"{int(adapt.sum())} adapting; B2-B4 match their plain versions")
+        if m_t == m_main:
+            main_fns["winner_lock"] = lambda a=largs: upk.winner_lock_min(*a)
+            main_fns["update_accum"] = lambda a=aargs: upk.update_accum(*a)
         if m_t == M:   # the unmasked buffer is the timed case
             init = torch.full((1, C), upk.BIG_PRIO, dtype=torch.int32,
                               device=dev)
@@ -271,10 +308,24 @@ def phase_kernels():
                            if r["library"] is not None else None)
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
-        log(f"  {name:13s} kernel {r['ms']:.4f} ms  plain "
+        main = (f"  at m_t={m_main}: {device_ms(main_fns[name], 50):.4f} ms"
+                if name in main_fns else "")
+        launched = device_launches(r["fn"])
+        if launched:
+            want = DEVICE_KERNELS[name]
+            assert len(launched) == len(want) and all(
+                any(k in n for k in want) for n in launched), (
+                f"{name} launched {launched}, expected {want}")
+            per_call = f"{len(launched)} device launch(es) per call"
+        else:
+            per_call = "device launches per call not measured"
+        log(f"  {name:13s} kernel {r['ms']:.4f} ms{main}  plain "
             f"{r['plain_ms']:.4f} ms  library {lib} ms  bound "
             f"{r['bound']:.5f} ms ({r['by']})  max|err| {r['err']:.3g}  "
-            f"{r['note']}")
+            f"{per_call}  {r['note']}")
+    one = torch.zeros(1, device=dev)
+    log(f"  launch floor: a one-element fill_ takes "
+        f"{device_ms(lambda: one.fill_(0), 50):.4f} ms")
     return results
 
 
@@ -444,8 +495,7 @@ def phase_profile(iters: int = 32):
         f"busy {busy * 1e3:.2f} ms = {100 * busy / wall:.1f}% "
         f"({100 - 100 * busy / wall:.1f}% idle), {n_launch / iters:.0f} "
         f"device ops per iteration")
-    ours = ("find_winners_kernel", "lock_kernel", "accum_kernel",
-            "owner_kernel", "fill_i32", "edge_age_kernel")
+    ours = [n for names in DEVICE_KERNELS.values() for n in names]
     mine = sum(us for n, us in kernels.items() if any(o in n for o in ours))
     log(f"  the port's kernels: {mine / 1e3:.3f} ms = "
         f"{100 * mine / 1e6 / busy:.1f}% of device time")

@@ -5,9 +5,14 @@
 //
 // The TPU kernels turn the GPU's atomic scatters into one-hot products on
 // the MXU. On this card the scatters come back, in forms that are
-// deterministic: an integer atomicMin for the lock (min commutes), and a
-// gather walk with a fixed order for the float sums (no float atomics),
-// so that a run repeats bit for bit.
+// deterministic: an integer min in shared memory for the lock (min
+// commutes), and a gather over neighbor slots with a fixed order for the
+// float sums (no float atomics), so that a run repeats bit for bit.
+//
+// At the main path's sizes each entry point moves well under a megabyte,
+// a fraction of a microsecond at 3.35 TB/s: all three are bound by the
+// launch and by chains of dependent L2 loads, not by bytes or
+// operations. The designs below cut launches and shorten those chains.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -21,57 +26,153 @@ inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-__global__ void fill_i32(int* __restrict__ p, int v, long long n) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < n) p[e] = v;
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // ---------------------------------------------------------------------------
 // B2. Winner lock. Replaces _lock_kernel (kernel.py:68): for each unit,
 // the minimum priority over the signals that it won; kBigPrio where none
-// did. Masked rows carry kBigPrio and are skipped. Bound: 8 bytes a signal
-// in and 4 a unit out (about 0.08 MB at M = 8192, C = 4096), so
-// launch-bound; one thread per signal, one atomicMin each.
+// did. Masked rows carry kBigPrio and are skipped.
+//
+// One launch, no global atomics. The grid is (ceil(C / kLockTile), B):
+// each block owns one tile of kLockTile units of one network in shared
+// memory, sets it to kBigPrio, reads every (wid, prio) pair of its
+// network (16-byte loads where the rows allow, 64 KB at M = 8192, from
+// L2), takes a shared-memory atomicMin for the winners that fall in its
+// tile, and stores the tile with coalesced writes. min commutes, so the
+// result is exact and repeatable. A pool larger than one tile (the JAX
+// package runs pools of 64k units) takes several blocks per network,
+// each reading the whole signal row.
+//
+// Bound: 8 bytes a signal in and 4 a unit out (about 0.08 MB at
+// M = 8192, C = 4096, 0.02 us). What costs is the launch and one SM
+// reading the 64 KB row through its own port to L2; the first two
+// 16-byte pairs of each thread are loaded before the tile is set, so
+// that their latency overlaps it. Splitting the row over the blocks of a
+// thread-block cluster, merged through distributed shared memory, was
+// tried and was slower at these sizes: the cluster's launch and syncs
+// cost more than the read it shares out.
 
-__global__ void lock_kernel(const int* __restrict__ wid,
-                            const int* __restrict__ prio,
-                            int* __restrict__ best, int M, int C) {
+constexpr int kLockThreads = 1024;
+constexpr int kLockTile = 8192;   // units per block: 32 KB of shared memory
+constexpr int kLockPre = 2;       // 16-byte pairs a thread loads early
+
+__device__ __forceinline__ void lock_one(int* tile, int lo, int n, int c,
+                                         int p) {
+  if (p != kBigPrio && c >= lo && c - lo < n) atomicMin(&tile[c - lo], p);
+}
+
+__device__ __forceinline__ void lock_four(int* tile, int lo, int n, int4 c,
+                                          int4 p) {
+  lock_one(tile, lo, n, c.x, p.x);
+  lock_one(tile, lo, n, c.y, p.y);
+  lock_one(tile, lo, n, c.z, p.z);
+  lock_one(tile, lo, n, c.w, p.w);
+}
+
+__global__ void __launch_bounds__(kLockThreads)
+lock_tile_kernel(const int* __restrict__ wid, const int* __restrict__ prio,
+                 int* __restrict__ best, int M, int C, int vec) {
+  __shared__ int tile[kLockTile];
   const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
-  const int p = prio[(size_t)b * M + i];
-  const int c = wid[(size_t)b * M + i];
-  if (p == kBigPrio || c < 0 || c >= C) return;
-  atomicMin(&best[(size_t)b * C + c], p);
+  const int lo = blockIdx.x * kLockTile;
+  const int n = min(kLockTile, C - lo);
+  wid += (size_t)b * M;
+  prio += (size_t)b * M;
+  // 16-byte pairs, where M % 4 == 0 and both rows are 16-byte aligned
+  const int q4 = vec ? M / 4 : 0;
+  const int4* w4 = reinterpret_cast<const int4*>(wid);
+  const int4* p4 = reinterpret_cast<const int4*>(prio);
+  int4 cw[kLockPre], pw[kLockPre];
+#pragma unroll
+  for (int r = 0; r < kLockPre; ++r) {
+    const int q = threadIdx.x + r * kLockThreads;
+    pw[r] = make_int4(kBigPrio, kBigPrio, kBigPrio, kBigPrio);
+    cw[r] = pw[r];
+    if (q < q4) {
+      cw[r] = w4[q];
+      pw[r] = p4[q];
+    }
+  }
+  for (int t = threadIdx.x; t < n; t += kLockThreads) tile[t] = kBigPrio;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kLockPre; ++r) lock_four(tile, lo, n, cw[r], pw[r]);
+#pragma unroll 2
+  for (int q = threadIdx.x + kLockPre * kLockThreads; q < q4;
+       q += kLockThreads)
+    lock_four(tile, lo, n, w4[q], p4[q]);
+  for (int i = 4 * q4 + threadIdx.x; i < M; i += kLockThreads)
+    lock_one(tile, lo, n, wid[i], prio[i]);
+  __syncthreads();
+  int* out = best + (size_t)b * C + lo;
+  for (int t = threadIdx.x; t < n; t += kLockThreads) out[t] = tile[t];
 }
 
 // ---------------------------------------------------------------------------
 // B3. Per-unit accumulators. Replaces _update_accum_kernel (kernel.py:124).
 //
-// After the lock each winner has exactly one selected signal, its owner.
-// Pass 1 marks owner[c] (no two selected signals share a winner, so the
-// writes never collide). Pass 2 runs one thread per unit c:
-//   * winner fields from its own owner o: w1 = w + scale_b[o] (x_o - w)
-//     if o adapts (a copy, not a sum), err = d2b[o], dec_b = dec_b[o],
-//     the winner indicator;
-//   * neighbor sums by walking its own row nbr[c]: for each neighbor b
-//     whose owner o adapts, find c's slot j in nbr[b] and add scale_n[o,j],
-//     scale_n[o,j] x_o and dec_n[o,j].
+// Precondition: the selected signals have distinct winners (the lock
+// keeps one signal per unit, and priorities are distinct). The selected
+// signal of unit c is its owner.
+//
+// Launch 1 (owner_scatter_kernel, one thread per signal) writes
+// owner[c] = i for each selected signal i with winner c; no two writes
+// collide. The scratch is not cleared first: owner[c] is trusted only if
+// o = owner[c] passes 0 <= o < M, sel[o] and wid[o] == c. A stale or
+// garbage value cannot pass by mistake: if it passes, c has a selected
+// signal o, so the scatter wrote owner[c] = o in this call. Every o is
+// bounds-checked before it indexes anything.
+//
+// Launch 2 (accum_group_kernel) gives each unit c a group of G lanes, one
+// per neighbor slot (G = K rounded up to a power of two in [8, 32];
+// slots beyond 32 loop in chunks of G). Lane j reads nb = nbr[c, j] and
+// finds c's slot jj in nbr[nb] (16-byte loads where K % 4 == 0); this
+// part reads only nbr, so it runs before the owner map is complete. The
+// kernel goes out with programmatic dependent launch (the scatter lets
+// it launch at once, griddepcontrol), so its launch and this first part
+// overlap launch 1; griddepcontrol.wait then waits for the owner map.
+// The lane validates owner[nb] and, if that signal adapts, stages
+// scale_n[o, jj], dec_n[o, jj] and scale_n x_o in shared memory; lane f
+// of the group then adds field f over the slots in slot order (exact
+// zeros for empty slots, which change no sum), so the neighbor fields
+// round exactly as a serial walk of nbr[c] does, the same on every run.
+// Lane 0 writes the winner fields from its own owner: w1 = w +
+// scale_b (x_o - w) if o adapts (a copy, not a sum), err = d2b[o],
+// dec_b = dec_b[o], the winner indicator. Products and sums are rounded
+// one by one (no FMA contraction), as PyTorch's separate elementwise ops
+// round them, so the winner fields are bitwise those of the plain
+// version.
+//
 // The walk relies on the symmetric-edge invariant (c in nbr[b] iff b in
 // nbr[c], each at most once), which every topology op keeps; the plain
 // version in kernel.py scatters by nbr[wid] and does not rely on it.
-// The sums run in slot order, the same on every run. Products and sums are
-// rounded one by one (no FMA contraction), as PyTorch's separate
-// elementwise ops round them, so the winner fields are bitwise those of
-// the plain version.
 //
-// Bound at M = 8192, C = 4096, K = 16, d = 3: about 1.3 MB read (signals,
-// the per-signal scales, nbr, w) and 0.2 MB written, under a microsecond
-// of memory time; the walk's gathers of nbr rows (K^2 per unit) hit L2.
+// Bound at M = 8192, C = 4096, K = 16, d = 3: about 0.6 MB that the
+// function needs (the flags of every signal, the other inputs of the
+// selected ones, nbr, w and the outputs), 0.17 us at 3.35 TB/s. What
+// costs is the launches and, per unit, a chain of about five dependent
+// L2 loads (nbr[c] -> nbr[nb] -> owner -> sel/wid/adapt -> scale_n/x):
+// still launch- and latency-bound, with the chain spread over lanes and
+// the ~300 active units of the main path over ~19 blocks.
 
-__global__ void owner_kernel(const int* __restrict__ wid,
-                             const uint8_t* __restrict__ sel,
-                             int* __restrict__ owner, int M, int C) {
+__device__ __forceinline__ void allow_dependent_launch() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void wait_for_primary_grid() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
+__global__ void owner_scatter_kernel(const int* __restrict__ wid,
+                                     const uint8_t* __restrict__ sel,
+                                     int* __restrict__ owner, int M, int C) {
+  allow_dependent_launch();
   const int b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M || !sel[(size_t)b * M + i]) return;
@@ -79,9 +180,44 @@ __global__ void owner_kernel(const int* __restrict__ wid,
   if (c >= 0 && c < C) owner[(size_t)b * C + c] = i;
 }
 
-template <int D>
-__global__ void accum_kernel(
-    const float* __restrict__ x, const uint8_t* __restrict__ adapt,
+// o if signal o owns unit c, else -1 (see the validation note above).
+// Both loads go out together.
+__device__ __forceinline__ int checked_owner(int o, const int* wid,
+                                             const uint8_t* sel, int c,
+                                             int M) {
+  if (o < 0 || o >= M) return -1;
+  const bool s = sel[o];
+  const int wo = wid[o];
+  return s && wo == c ? o : -1;
+}
+
+// c's slot in row nbr[nb] (the first match), or -1.
+__device__ __forceinline__ int back_slot(const int* nbr, int nb, int c,
+                                         int K, bool vec) {
+  const int* row = nbr + (size_t)nb * K;
+  int jj = -1;
+  if (vec) {   // K % 4 == 0, rows 16-byte aligned
+    const int4* r4 = reinterpret_cast<const int4*>(row);
+#pragma unroll 4
+    for (int q = K / 4 - 1; q >= 0; --q) {
+      const int4 v = r4[q];
+      if (v.w == c) jj = 4 * q + 3;
+      if (v.z == c) jj = 4 * q + 2;
+      if (v.y == c) jj = 4 * q + 1;
+      if (v.x == c) jj = 4 * q;
+    }
+  } else {
+    for (int q = K - 1; q >= 0; --q)
+      if (row[q] == c) jj = q;
+  }
+  return jj;
+}
+
+template <int D, int G>
+__global__ void __launch_bounds__(kThreads)
+accum_group_kernel(
+    const float* __restrict__ x, const int* __restrict__ wid,
+    const uint8_t* __restrict__ sel, const uint8_t* __restrict__ adapt,
     const float* __restrict__ scale_b, const float* __restrict__ d2b,
     const float* __restrict__ dec_b, const float* __restrict__ scale_n,
     const float* __restrict__ dec_n, const int* __restrict__ nbr,
@@ -89,11 +225,21 @@ __global__ void accum_kernel(
     float* __restrict__ w1, float* __restrict__ nsc, float* __restrict__ nsx,
     float* __restrict__ err, float* __restrict__ decb_u,
     float* __restrict__ decn_u, float* __restrict__ wind, int M, int C,
-    int K) {
+    int K, int vec) {
+  constexpr int F = D + 2;   // staged per slot: scale_n, dec_n, scale_n x
+  constexpr int kUnits = kThreads / G;
+  constexpr int kPerLane = (F + G - 1) / G;   // fields summed per lane
+  __shared__ float stage[F][kThreads + 1];
+
   const int b = blockIdx.y;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+  const int lane = threadIdx.x % G;
+  const int first = threadIdx.x - lane;   // the group's lane 0
+  const int c = blockIdx.x * kUnits + threadIdx.x / G;
+  const bool live = c < C;
+  const bool leader = live && lane == 0;
   x += (size_t)b * M * D;
+  wid += (size_t)b * M;
+  sel += (size_t)b * M;
   adapt += (size_t)b * M;
   scale_b += (size_t)b * M;
   d2b += (size_t)b * M;
@@ -104,59 +250,124 @@ __global__ void accum_kernel(
   owner += (size_t)b * C;
   const size_t u = (size_t)b * C + c;
 
-  const int o = owner[c];
-  const bool win_adapts = o >= 0 && adapt[o];
-  const float s = win_adapts ? scale_b[o] : 0.f;
+  // ---- before the owner map is complete: nbr and w only
+  int nb = -1, jj = -1;   // slot j's neighbor, and c's slot in its row
+  auto find = [&](int j) {
+    nb = (live && j < K) ? nbr[(size_t)c * K + j] : -1;
+    jj = (nb >= 0 && nb < C) ? back_slot(nbr, nb, c, K, vec) : -1;
+  };
+  find(lane);
+  float wrow[D];
 #pragma unroll
-  for (int k = 0; k < D; ++k) {
-    const float wk = w[u * D + k];
-    w1[u * D + k] =
-        win_adapts
-            ? __fadd_rn(wk, __fmul_rn(s, __fsub_rn(x[(size_t)o * D + k], wk)))
-            : wk;
-  }
-  err[u] = o >= 0 ? d2b[o] : 0.f;
-  wind[u] = o >= 0 ? 1.f : 0.f;
-  decb_u[u] = win_adapts ? dec_b[o] : 0.f;
+  for (int k = 0; k < D; ++k) wrow[k] = leader ? w[u * D + k] : 0.f;
+  wait_for_primary_grid();
 
-  float sc = 0.f, dn = 0.f, sx[D];
+  // The unit's own owner (lane 0) and its neighbor's (every lane) are
+  // fetched side by side, so that the two chains of loads overlap.
+  int ow = leader ? owner[c] : -1;
+  int on = jj >= 0 ? owner[nb] : -1;
+  ow = checked_owner(ow, wid, sel, c, M);
+  on = checked_owner(on, wid, sel, nb, M);
+
+  // ---- winner fields
+  if (leader) {
+    bool win_adapts = false;
+    float s = 0.f, e = 0.f, db = 0.f, xo[D];
 #pragma unroll
-  for (int k = 0; k < D; ++k) sx[k] = 0.f;
-  const int* row = nbr + (size_t)c * K;
-  for (int j = 0; j < K; ++j) {
-    const int nb = row[j];
-    if (nb < 0) continue;
-    const int ob = owner[nb];
-    if (ob < 0 || !adapt[ob]) continue;
-    const int* back = nbr + (size_t)nb * K;
-    for (int jj = 0; jj < K; ++jj) {
-      if (back[jj] != c) continue;
-      const float sn = scale_n[(size_t)ob * K + jj];
-      sc = __fadd_rn(sc, sn);
-      dn = __fadd_rn(dn, dec_n[(size_t)ob * K + jj]);
+    for (int k = 0; k < D; ++k) xo[k] = 0.f;
+    if (ow >= 0) {
+      win_adapts = adapt[ow];
+      s = scale_b[ow];
+      e = d2b[ow];
+      db = dec_b[ow];
 #pragma unroll
-      for (int k = 0; k < D; ++k)
-        sx[k] = __fadd_rn(sx[k], __fmul_rn(sn, x[(size_t)ob * D + k]));
-      break;
+      for (int k = 0; k < D; ++k) xo[k] = x[(size_t)ow * D + k];
     }
-  }
-  nsc[u] = sc;
-  decn_u[u] = dn;
 #pragma unroll
-  for (int k = 0; k < D; ++k) nsx[u * D + k] = sx[k];
+    for (int k = 0; k < D; ++k)
+      w1[u * D + k] =
+          win_adapts
+              ? __fadd_rn(wrow[k], __fmul_rn(s, __fsub_rn(xo[k], wrow[k])))
+              : wrow[k];
+    err[u] = ow >= 0 ? e : 0.f;
+    wind[u] = ow >= 0 ? 1.f : 0.f;
+    decb_u[u] = win_adapts ? db : 0.f;
+  }
+
+  // ---- neighbor fields, G slots at a time, summed in slot order
+  float acc[kPerLane];
+#pragma unroll
+  for (int r = 0; r < kPerLane; ++r) acc[r] = 0.f;
+  for (int base = 0;;) {
+    float v[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = 0.f;
+    if (on >= 0) {
+      const bool a = adapt[on];
+      const float sn = scale_n[(size_t)on * K + jj];
+      const float dn = dec_n[(size_t)on * K + jj];
+      float xo[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) xo[k] = x[(size_t)on * D + k];
+      if (a) {
+        v[0] = sn;
+        v[1] = dn;
+#pragma unroll
+        for (int k = 0; k < D; ++k) v[2 + k] = __fmul_rn(sn, xo[k]);
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) stage[f][threadIdx.x] = v[f];
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < kPerLane; ++r) {
+      const int f = lane + r * G;
+      if (f < F) {
+#pragma unroll
+        for (int t = 0; t < G; ++t)
+          acc[r] = __fadd_rn(acc[r], stage[f][first + t]);
+      }
+    }
+    __syncwarp();
+    base += G;
+    if (base >= K) break;
+    find(base + lane);
+    on = checked_owner(jj >= 0 ? owner[nb] : -1, wid, sel, nb, M);
+  }
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < kPerLane; ++r) {
+    const int f = lane + r * G;
+    if (f == 0) nsc[u] = acc[r];
+    else if (f == 1) decn_u[u] = acc[r];
+    else if (f < F) nsx[u * D + (f - 2)] = acc[r];
+  }
 }
 
-template <int D>
-void launch_accum(const float* x, const uint8_t* adapt, const float* scale_b,
-                  const float* d2b, const float* dec_b, const float* scale_n,
-                  const float* dec_n, const int* nbr, const float* w,
-                  const int* owner, float* w1, float* nsc, float* nsx,
-                  float* err, float* decb_u, float* decn_u, float* wind,
-                  int B, int M, int C, int K, cudaStream_t stream) {
-  const dim3 grid(blocks_for(C), B);
-  accum_kernel<D><<<grid, kThreads, 0, stream>>>(
-      x, adapt, scale_b, d2b, dec_b, scale_n, dec_n, nbr, w, owner, w1, nsc,
-      nsx, err, decb_u, decn_u, wind, M, C, K);
+template <int D, int G>
+cudaError_t launch_accum(const float* x, const int* wid, const uint8_t* sel,
+                         const uint8_t* adapt, const float* scale_b,
+                         const float* d2b, const float* dec_b,
+                         const float* scale_n, const float* dec_n,
+                         const int* nbr, const float* w, const int* owner,
+                         float* w1, float* nsc, float* nsx, float* err,
+                         float* decb_u, float* decn_u, float* wind, int B,
+                         int M, int C, int K, int vec, cudaStream_t stream) {
+  constexpr int kUnits = kThreads / G;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((C + kUnits - 1) / kUnits), B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, accum_group_kernel<D, G>, x, wid, sel,
+                            adapt, scale_b, d2b, dec_b, scale_n, dec_n, nbr,
+                            w, owner, w1, nsc, nsx, err, decb_u, decn_u,
+                            wind, M, C, K, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -197,17 +408,18 @@ __global__ void edge_age_kernel(const float* __restrict__ age,
 extern "C" int repro_winner_lock(const int* wid, const int* prio, int* best,
                                  int B, int M, int C, cudaStream_t stream) {
   if (B < 1 || M < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * C;
-  fill_i32<<<blocks_for(n), kThreads, 0, stream>>>(best, kBigPrio, n);
-  lock_kernel<<<dim3(blocks_for(M), B), kThreads, 0, stream>>>(wid, prio,
-                                                              best, M, C);
+  const int vec = M % 4 == 0 && aligned16(wid) && aligned16(prio);
+  const dim3 grid((unsigned)((C + kLockTile - 1) / kLockTile), B);
+  lock_tile_kernel<<<grid, kLockThreads, 0, stream>>>(wid, prio, best, M, C,
+                                                      vec);
   return (int)cudaGetLastError();
 }
 
 // x (B, M, D) f32; wid (B, M) i32; sel, adapt (B, M) bool; scale_b, d2b,
 // dec_b (B, M) f32; scale_n, dec_n (B, M, K) f32; nbr (B, C, K) i32;
-// w (B, C, D) f32; owner (B, C) i32 scratch -> w1, nsx (B, C, D) f32 and
-// nsc, err, decb_u, decn_u, wind (B, C) f32. Returns cudaGetLastError().
+// w (B, C, D) f32; owner (B, C) i32 scratch, any contents -> w1, nsx
+// (B, C, D) f32 and nsc, err, decb_u, decn_u, wind (B, C) f32. Returns
+// cudaGetLastError().
 extern "C" int repro_update_accum(
     const float* x, const int* wid, const uint8_t* sel, const uint8_t* adapt,
     const float* scale_b, const float* d2b, const float* dec_b,
@@ -215,27 +427,41 @@ extern "C" int repro_update_accum(
     int* owner, float* w1, float* nsc, float* nsx, float* err, float* decb_u,
     float* decn_u, float* wind, int B, int M, int C, int K, int D,
     cudaStream_t stream) {
-  if (B < 1 || M < 1 || C < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * C;
-  fill_i32<<<blocks_for(n), kThreads, 0, stream>>>(owner, -1, n);
-  owner_kernel<<<dim3(blocks_for(M), B), kThreads, 0, stream>>>(wid, sel,
-                                                               owner, M, C);
-#define REPRO_ACCUM(DD)                                                    \
-  launch_accum<DD>(x, adapt, scale_b, d2b, dec_b, scale_n, dec_n, nbr, w,  \
-                   owner, w1, nsc, nsx, err, decb_u, decn_u, wind, B, M, C, \
-                   K, stream)
+  if (B < 1 || M < 1 || C < 1 || K < 1 || D < 1 || D > 8)
+    return (int)cudaErrorInvalidValue;
+  owner_scatter_kernel<<<dim3(blocks_for(M), B), kThreads, 0, stream>>>(
+      wid, sel, owner, M, C);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int vec = K % 4 == 0 && aligned16(nbr);
+  const int G = K <= 8 ? 8 : K <= 16 ? 16 : 32;
+  cudaError_t r = cudaErrorInvalidValue;
+#define REPRO_ACCUM(DD, GG)                                                  \
+  r = launch_accum<DD, GG>(x, wid, sel, adapt, scale_b, d2b, dec_b, scale_n, \
+                           dec_n, nbr, w, owner, w1, nsc, nsx, err, decb_u,  \
+                           decn_u, wind, B, M, C, K, vec, stream)
+#define REPRO_ACCUM_D(DD)              \
+  case DD:                             \
+    if (G == 8) REPRO_ACCUM(DD, 8);    \
+    else if (G == 16) REPRO_ACCUM(DD, 16); \
+    else REPRO_ACCUM(DD, 32);          \
+    break
   switch (D) {
-    case 1: REPRO_ACCUM(1); break;
-    case 2: REPRO_ACCUM(2); break;
-    case 3: REPRO_ACCUM(3); break;
-    case 4: REPRO_ACCUM(4); break;
-    case 5: REPRO_ACCUM(5); break;
-    case 6: REPRO_ACCUM(6); break;
-    case 7: REPRO_ACCUM(7); break;
-    case 8: REPRO_ACCUM(8); break;
-    default: return (int)cudaErrorInvalidValue;
+    REPRO_ACCUM_D(1);
+    REPRO_ACCUM_D(2);
+    REPRO_ACCUM_D(3);
+    REPRO_ACCUM_D(4);
+    REPRO_ACCUM_D(5);
+    REPRO_ACCUM_D(6);
+    REPRO_ACCUM_D(7);
+    REPRO_ACCUM_D(8);
   }
+#undef REPRO_ACCUM_D
 #undef REPRO_ACCUM
+  if (r != cudaSuccess) {
+    cudaGetLastError();   // clear the error the failed launch left
+    return (int)r;
+  }
   return (int)cudaGetLastError();
 }
 

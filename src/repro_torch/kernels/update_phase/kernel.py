@@ -9,19 +9,31 @@ All arrays carry a leading batch axis B (one network per row).
 * ``winner_lock_min`` replaces ``_lock_kernel``
   (``src/repro/kernels/update_phase/kernel.py:68``): per unit, the least
   priority among the signals it won (``BIG_PRIO`` where none). One
-  integer ``atomicMin`` per signal: min commutes, so the result is exact
-  and repeatable. Bound: 8 bytes per signal in, 4 per unit out (0.08 MB
-  at M = 8192, C = 4096, 0.02 us at 3.35 TB/s): launch-bound.
+  launch, no global atomics: each block keeps a tile of up to 8192 units
+  of one network in shared memory, reads the network's whole
+  ``(wid, prio)`` row and takes a shared-memory ``atomicMin`` for the
+  winners in its tile (a larger pool takes several tiles). min commutes,
+  so the result is exact and repeatable. Bound: 8 bytes per signal in, 4
+  per unit out (0.08 MB at M = 8192, C = 4096, 0.02 us at 3.35 TB/s):
+  the launch is the cost.
 * ``update_accum`` replaces ``_update_accum_kernel`` (``:124``): the
   winner pull ``w1 = w + scale_b (x_winner - w)`` (a copy: winners are
   distinct after the lock), ``nsc = sum scale_n``, ``nsx = sum
   scale_n x`` over the neighbor slots that point at each unit,
   ``err = sum d2b`` over selected winners, the habituation decrements
-  and the winner indicator. No float atomics: each unit gathers its
-  neighbor pulls by walking its own row of ``nbr`` in slot order, which
-  relies on the symmetric-edge invariant (the plain version scatters by
-  ``nbr[wid]`` and does not). Bound: about 1.5 MB moved at M = 8192,
-  C = 4096, K = 16 (0.45 us): memory-bound, launch-bound in practice.
+  and the winner indicator. Two launches: a scatter of each selected
+  signal's id into the ``owner`` scratch, then one group of lanes per
+  unit, one lane per slot of its ``nbr`` row, launched so that it
+  overlaps the scatter (programmatic dependent launch). The scratch is
+  not cleared: ``o = owner[c]`` counts only if ``0 <= o < M``,
+  ``sel[o]`` and ``wid[o] == c``, which no stale value can pass while
+  the selected signals have distinct winners (the lock's precondition).
+  No float atomics: each lane finds its unit in its neighbor's row and
+  stages that slot's pull, and the sums run in slot order, which relies
+  on the symmetric-edge invariant (the plain version scatters by
+  ``nbr[wid]`` and does not). Bound: about 0.6 MB that the function
+  needs at M = 8192, C = 4096, K = 16 (0.17 us); the two launches and a
+  chain of about five dependent L2 loads per unit cost more.
 * ``edge_age`` replaces ``_edge_age_kernel`` (``:272``): ``age + (win +
   winat) valid (1 - prot protat)``, 0 where ``reset`` marks the
   winner-second slot; ``valid``, ``winat`` and ``protat`` are formed
@@ -144,6 +156,7 @@ def update_accum(x, wid, sel, adapt, scale_b, d2b, dec_b, scale_n, dec_n,
     _build.check("w", w, f32, (B, C, D), dev)
     if not 1 <= D <= 8:
         raise ValueError(f"update_accum kernel takes 1 <= dim <= 8, got {D}")
+    # any contents: the kernel validates every entry it reads
     owner = torch.empty((B, C), dtype=torch.int32, device=dev)
     w1 = torch.empty((B, C, D), dtype=f32, device=dev)
     nsx = torch.empty((B, C, D), dtype=f32, device=dev)

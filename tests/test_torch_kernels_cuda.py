@@ -16,8 +16,12 @@ build or a tensor the kernels do not take.
 """
 from __future__ import annotations
 
+import importlib.util
 import math
+import re
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,6 +45,9 @@ from repro_torch.kernels.update_phase import (BIG_PRIO, edge_age,
 torch.set_num_threads(1)
 D_TOL = dict(rtol=2e-4, atol=1e-5)
 W_TOL = dict(rtol=1e-6, atol=1e-7)
+ROOT = Path(__file__).resolve().parents[1]
+ACCUM_FIELDS = ("w1", "nsc", "nsx", "err", "decb_u", "decn_u", "wind")
+WINNER_FIELDS = ("w1", "err", "decb_u", "wind")
 
 
 @pytest.fixture
@@ -225,6 +232,195 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# B2 and B3 on synthetic networks: symmetric neighbor tables of any
+# degree, full pools, fleets (B > 1), masked buffers, large pools
+
+
+def _symmetric_nbr(rng, C, K, n_active, full):
+    """A (C, K) neighbor table with symmetric edges and empty slots at
+    random places: a circulant graph with every slot used (all C units
+    active) if ``full``, else random edges among units 0..n_active-1 (the
+    main path's pool: free slots go out lowest id first)."""
+    if full:
+        offs = [o for h in range(1, K // 2 + 1) for o in (h, -h)]
+        nbr = (np.arange(C)[:, None] + np.array(offs)[None, :]) % C
+        order = rng.permuted(np.tile(np.arange(K), (C, 1)), axis=1)
+        return np.take_along_axis(nbr, order, axis=1).astype(np.int32)
+    nbr = np.full((C, K), -1, np.int32)
+    for a, b in rng.integers(0, n_active, (n_active * K, 2)):
+        if a == b or (nbr[a] == b).any():
+            continue
+        free_a, free_b = np.flatnonzero(nbr[a] < 0), np.flatnonzero(nbr[b] < 0)
+        if len(free_a) and len(free_b):
+            nbr[a, rng.choice(free_a)] = b
+            nbr[b, rng.choice(free_b)] = a
+    return nbr
+
+
+def _accum_network(rng, C, K, M, D, full=False, m_t=None, n_active=300):
+    """One network's lock inputs and accumulator inputs, numpy: winners
+    from the active units (every unit wins at least once if ``full``),
+    distinct priorities, the lock's survivors as ``sel``."""
+    nbr = _symmetric_nbr(rng, C, K, n_active, full)
+    if full:
+        wid = np.concatenate([rng.permutation(C), rng.integers(0, C, M - C)])
+    else:
+        wid = rng.integers(0, n_active, M)
+    wid = wid.astype(np.int32)
+    mask = np.arange(M) < (M if m_t is None else m_t)
+    prio = np.where(mask, rng.permutation(M), BIG_PRIO).astype(np.int32)
+    best = np.full(C, BIG_PRIO, np.int64)
+    np.minimum.at(best, wid, prio)
+    sel = (prio == best[wid]) & mask
+    adapt = sel & (rng.random(M) < 0.8)
+    valid = (nbr[wid] >= 0) & adapt[:, None]
+    f32 = np.float32
+    return dict(
+        prio=prio, x=rng.standard_normal((M, D)).astype(f32), wid=wid,
+        sel=sel, adapt=adapt, scale_b=(0.1 * rng.random(M)).astype(f32),
+        d2b=rng.random(M).astype(f32),
+        dec_b=(0.01 * rng.random(M)).astype(f32),
+        scale_n=np.where(valid, 0.05 * rng.random((M, K)), 0).astype(f32),
+        dec_n=np.where(valid, 0.01 * rng.random((M, K)), 0).astype(f32),
+        nbr=nbr, w=rng.standard_normal((C, D)).astype(f32))
+
+
+ACCUM_ARGS = ("x", "wid", "sel", "adapt", "scale_b", "d2b", "dec_b",
+              "scale_n", "dec_n", "nbr", "w")
+
+
+def _accum_fleet(dev, seed, B, C, K, M, D, **kw):
+    """B networks stacked: (lock args, accumulator args, numpy nets)."""
+    rng = np.random.default_rng(seed)
+    nets = [_accum_network(rng, C, K, M, D, **kw) for _ in range(B)]
+
+    def stack(key):
+        return torch.from_numpy(np.stack([n[key] for n in nets])).to(dev)
+    return ((stack("wid"), stack("prio"), C),
+            [stack(k) for k in ACCUM_ARGS], nets)
+
+
+def _check_accum(got, plain):
+    for name, k, q in zip(ACCUM_FIELDS, got, plain):
+        if name in WINNER_FIELDS:
+            assert torch.equal(k, q), f"{name} not bitwise"
+        torch.testing.assert_close(k, q, **W_TOL, msg=name)
+
+
+def _launch_accum(args, owner):
+    """repro_update_accum called directly, on a given owner scratch."""
+    x, nbr = args[0], args[9]
+    B, M, D = x.shape
+    C, K = nbr.shape[1:]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    outs = [torch.empty((B, C, D), **f32), torch.empty((B, C), **f32),
+            torch.empty((B, C, D), **f32)] + [
+        torch.empty((B, C), **f32) for _ in range(4)]
+    _build.launch("update_phase", "repro_update_accum",
+                  [*args, owner, *outs], [B, M, C, K, D])
+    return outs
+
+
+def _stale_owner(rng, net, kind):
+    """Owner scratch contents that must never pass the kernel's check."""
+    wid, sel = net["wid"], net["sel"]
+    C, M = net["nbr"].shape[0], wid.shape[0]
+    big = np.iinfo(np.int32)
+    if kind == "unselected":     # in range, winner right, not selected
+        unsel = np.flatnonzero(~sel)
+        owner = rng.choice(unsel, C)
+        owner[wid[unsel]] = unsel
+    elif kind == "other_winner":  # selected, but it won another unit
+        ids = np.flatnonzero(sel)
+        owner = rng.choice(ids, C)
+        owner[wid[ids]] = np.roll(ids, 1)
+    elif kind == "negative":
+        owner = rng.integers(big.min, 0, C)
+    elif kind == "too_large":
+        owner = rng.integers(M, big.max, C, endpoint=True)
+    else:                        # a mix of all of the above
+        owner = np.stack([_stale_owner(rng, net, k) for k in (
+            "unselected", "other_winner", "negative", "too_large")])
+        owner = owner[rng.integers(0, 4, C), np.arange(C)]
+    return owner.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["unselected", "other_winner", "negative",
+                                  "too_large", "mixed"])
+def test_update_accum_ignores_stale_owner_scratch(cuda_device, kind):
+    """The owner scratch is not cleared: whatever it holds, the outputs
+    are those of a call on a scratch set to -1."""
+    _, args, nets = _accum_fleet(cuda_device, 11, 2, 4096, 16, 8192, 3)
+    rng = np.random.default_rng(12)
+    clean = _launch_accum(args, torch.full((2, 4096), -1, dtype=torch.int32,
+                                           device=cuda_device))
+    stale = torch.from_numpy(np.stack(
+        [_stale_owner(rng, n, kind) for n in nets])).to(cuda_device)
+    got = _launch_accum(args, stale)
+    torch.cuda.synchronize()
+    for name, k, q in zip(ACCUM_FIELDS, got, clean):
+        assert torch.equal(k, q), f"{name} differs on a stale scratch"
+    _check_accum(got, update_accum_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 16, 32])
+def test_update_accum_on_a_full_pool(cuda_device, K):
+    """All 4096 units active and every slot of every row used; every unit
+    wins a signal."""
+    _, args, _ = _accum_fleet(cuda_device, K, 1, 4096, K, 8192, 3, full=True)
+    assert bool(args[2].sum() == 4096)
+    got = update_accum(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, update_accum(*args)))
+    _check_accum(got, update_accum_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_t", [None, 64])
+@pytest.mark.parametrize("K,D", [(6, 3), (8, 3), (16, 3), (32, 3), (40, 3),
+                                 (16, 5)])
+def test_lock_and_accum_on_fleets(cuda_device, K, D, m_t):
+    """B = 3 networks in one launch, at several degrees (6 and 40 take
+    the unaligned row search and the chunked slot loop), unmasked and
+    masked to m_t = 64."""
+    largs, args, _ = _accum_fleet(cuda_device, 100 + K + D, 3, 2000, K,
+                                  4096, D, m_t=m_t)
+    before = (winner_lock_min.launches, update_accum.launches)
+    best = winner_lock_min(*largs)
+    assert torch.equal(best, winner_lock_min(*largs))
+    assert torch.equal(best, winner_lock_min_plain(*largs))
+    wid, prio = largs[0], largs[1]
+    sel = (prio == torch.gather(best, 1, wid.long())) & (prio != BIG_PRIO)
+    assert torch.equal(sel, args[2])
+    got = update_accum(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, update_accum(*args)))
+    assert (winner_lock_min.launches, update_accum.launches) == (
+        before[0] + 2, before[1] + 2)
+    _check_accum(got, update_accum_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,M,B", [(65536, 8192, 1), (65541, 8191, 2),
+                                   (4096, 8190, 3)])
+@pytest.mark.parametrize("m_t", [None, 64])
+def test_winner_lock_across_tiles(cuda_device, C, M, B, m_t):
+    """Pools larger than one shared-memory tile (several blocks per
+    network, a ragged last tile) and buffers whose rows are not 16-byte
+    multiples (the scalar path)."""
+    g = torch.Generator(device=cuda_device).manual_seed(C + M)
+    wid = torch.randint(0, C, (B, M), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    prio = torch.stack([torch.randperm(M, generator=g, device=cuda_device,
+                                       dtype=torch.int32) for _ in range(B)])
+    if m_t is not None:
+        prio[:, m_t:] = BIG_PRIO
+    best = winner_lock_min(wid, prio, C)
+    assert torch.equal(best, winner_lock_min(wid, prio, C))
+    assert torch.equal(best, winner_lock_min_plain(wid, prio, C))
+
+
+# ---------------------------------------------------------------------------
 # no fallback (these run on any host)
 
 
@@ -255,3 +451,20 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="broken source"):
         _build.build_all()
     assert not list(tmp_path.glob("*.so"))
+
+
+def test_chip_smoke_names_every_kernel_of_the_sources():
+    """chip_smoke.py counts a wrapper's device launches and sums the
+    port's kernels in its profile by the names in DEVICE_KERNELS: every
+    __global__ of the CUDA sources is named there, and nothing else."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    declared = {n for names in smoke.DEVICE_KERNELS.values() for n in names}
+    defined = set()
+    for src in _build.SOURCES.values():
+        defined |= set(re.findall(r"__global__\s+void\s+"
+                                  r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                                  src.read_text()))
+    assert declared == defined
