@@ -8,20 +8,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
 1. environment — torch and CUDA versions, the card's name and power
    limit; TF32 off for matrix products and convolutions.
 2. build — every CUDA source of the port, one ``nvcc`` each, in parallel.
-3. kernels — each of the four kernels against its plain PyTorch version
-   at the main path's shapes (C=4096, K=16, d=3, a buffer of m=8192
-   signals, unmasked, masked to the m-schedule's m_t = next_pow2(n_active)
-   as the main path hands it, and masked to m_t=64) on a pool grown by a
-   short plain run: bitwise where the contract says so (Find Winners ids
-   where the three nearest distances are more than 1e-4 apart, its
-   distances within rtol=2e-4, atol=1e-5; the neighbor sums of the
-   accumulator within rtol=1e-6, atol=1e-7), and bitwise repeatable.
-   Times of the kernel (the lock and the accumulators at both the full
-   and the main path's masked buffer), its plain version and, where one
-   PyTorch call computes the same function, that call; the bound; the
-   device kernels one call launches (``torch.profiler``), which must be
-   the ones ``DEVICE_KERNELS`` names; and, as the floor of a launch-bound
-   kernel, the time of one launch of a one-element ``fill_``.
+3. kernels — each kernel against its plain PyTorch version at the main
+   path's shapes (C=4096, K=16, d=3, a buffer of m=8192 signals,
+   unmasked, masked to the m-schedule's m_t = next_pow2(n_active) as the
+   main path hands it, and masked to m_t=64) on a pool grown by a short
+   plain run: bitwise where the contract says so (Find Winners ids where
+   the three nearest distances are more than 1e-4 apart, its distances
+   within rtol=2e-4, atol=1e-5; the neighbor sums of the accumulators
+   within rtol=1e-6, atol=1e-7; their winner fields and the aged edge
+   table, which the same launch computes, bitwise), and bitwise
+   repeatable. Times of the kernel (the lock and the fused accumulators
+   at both the full and the main path's masked buffer), its plain version
+   and, where one PyTorch call computes the same function, that call; the
+   bound; the device kernels one call launches (``torch.profiler``),
+   which must be the ones ``DEVICE_KERNELS`` names, and the port's device
+   launches in one ``update_phase_op`` call (3); and, as the floor of a
+   launch-bound kernel, the time of one launch of a one-element
+   ``fill_``.
 4. main path — ``Session(RunSpec())`` (variant ``multi``) and
    ``variant="multi-fused"`` at the full default geometry through the
    ``cuda-full`` backend, with every launch counter set to 0 before and
@@ -69,8 +72,13 @@ DEVICE_KERNELS = {
     "find_winners": ("find_winners_kernel",),
     "winner_lock": ("lock_tile_kernel",),
     "update_accum": ("owner_scatter_kernel", "accum_group_kernel"),
-    "edge_age": ("edge_age_kernel",),
 }
+# Edge aging (B4) runs inside the accumulators' launch: its entry of the
+# kernels line reports that launch.
+SHARED = {"edge_age": "update_accum"}
+# The accumulators and edge aging as two calls, before the fusion: 0.0050
+# + 0.0033 ms (this script on an H100 80GB HBM3 at 700 W).
+PAIR_BEFORE_MS = 0.0083
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 (no tensor core)
 HBM_BPS = 3.35e12
@@ -110,17 +118,23 @@ def device_ms(fn, reps: int) -> float:
 
 def device_launches(fn) -> list:
     """Names of the device kernels that one ``fn()`` launches, from
-    ``torch.profiler`` (empty if it records no device activity)."""
+    ``torch.profiler`` (empty if it records no device activity). A
+    session can come back empty now and then, so an empty one is taken
+    again, up to three times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return []
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -192,6 +206,7 @@ def phase_kernels():
     from repro_torch.core.gson.superstep import next_pow2
     from repro_torch.kernels.find_winners import kernel as fwk
     from repro_torch.kernels.update_phase import kernel as upk
+    from repro_torch.kernels.update_phase.ops import update_phase_op
 
     dev = torch.device("cuda")
     state, params = grown_pool(SEED)
@@ -227,14 +242,15 @@ def phase_kernels():
         err=float((d2k - d2p).abs().max()), bound=b, by=by,
         note=f"ids equal on {int(ok.sum())}/{M} tie-free rows")
 
-    # ---- B2..B4 on the main path's inputs: the full buffer, the buffer
-    # masked as the main path's m-schedule masks it, and m_t = 64
+    # ---- B2 and the fused B3 + B4 on the main path's inputs: the full
+    # buffer, the buffer masked as the main path's m-schedule masks it,
+    # and m_t = 64
     wid, sid, d2b, _ = find_winners_reference(sig, state.w, act)
     prio = torch.randperm(M, generator=g, device=dev, dtype=torch.int32)
     stable = stable_units(state, params)
-    errs = {"winner_lock": 0.0, "update_accum": 0.0, "edge_age": 0.0}
+    errs = {"update_accum": 0.0, "edge_age": 0.0}
     m_main = min(next_pow2(n_act), M)
-    main_fns = {}   # B2 and B3 on the buffer as the main path hands it
+    main_fns = {}   # B2 and B3 + B4 on the buffer as the main path hands it
     for m_t in dict.fromkeys((M, m_main, 64)):
         mask = torch.arange(M, device=dev) < m_t
         prio_m = torch.where(mask, prio, upk.BIG_PRIO)
@@ -248,32 +264,28 @@ def phase_kernels():
             update_phase_inputs(state, wid, d2b, selected, params)
         aargs = [x[None].contiguous() for x in (
             sig, wid, selected, adapt, scale_b, d2b, dec_b, scale_n, dec_n,
-            state.nbr, state.w)]
+            state.nbr, state.w, sid, state.age, stable)]
         got = upk.update_accum(*aargs)
         again = upk.update_accum(*aargs)
         plain = upk.update_accum_plain(*aargs)
-        names = ("w1", "nsc", "nsx", "err", "decb_u", "decn_u", "wind")
+        names = ("w1", "nsc", "nsx", "err", "decb_u", "decn_u", "wind",
+                 "age")
         for name, k, k2, p in zip(names, got, again, plain):
             assert torch.equal(k, k2), f"update_accum {name} not repeatable"
-            if name in ("w1", "err", "decb_u", "wind"):
+            if name in ("w1", "err", "decb_u", "wind", "age"):
                 assert torch.equal(k, p), f"update_accum {name} differs"
             torch.testing.assert_close(k, p, rtol=1e-6, atol=1e-7)
-            errs["update_accum"] = max(errs["update_accum"],
-                                       float((k - p).abs().max()))
-        win = got[-1][0] > 0
-        reset = topo.edge_slots(state.nbr, wid, sid, adapt)
-        eargs = [x[None].contiguous() for x in (state.age, state.nbr, win,
-                                                stable, reset)]
-        age = upk.edge_age(*eargs)
-        assert torch.equal(age, upk.edge_age(*eargs)), "edge_age repeat"
-        assert torch.equal(age, upk.edge_age_plain(*eargs)), \
-            "edge_age differs"
+            key = "edge_age" if name == "age" else "update_accum"
+            errs[key] = max(errs[key], float((k - p).abs().max()))
+        n_reset = int(topo.edge_slots(state.nbr, wid, sid, adapt).sum())
         n_sel = int(selected.sum())
         log(f"  m_t={m_t}: {n_sel} lock survivors, "
-            f"{int(adapt.sum())} adapting; B2-B4 match their plain versions")
+            f"{int(adapt.sum())} adapting, {n_reset} winner-second slots "
+            f"reset; B2 and the fused B3 + B4 match their plain versions")
         if m_t == m_main:
             main_fns["winner_lock"] = lambda a=largs: upk.winner_lock_min(*a)
             main_fns["update_accum"] = lambda a=aargs: upk.update_accum(*a)
+            op_args = (state, sig, wid, sid, d2b, prio, params, mask)
         if m_t == M:   # the unmasked buffer is the timed case
             init = torch.full((1, C), upk.BIG_PRIO, dtype=torch.int32,
                               device=dev)
@@ -285,20 +297,16 @@ def phase_kernels():
                 err=0.0, bound=bound_ms(M * 8 + C * 4, 0)[0], by="bytes",
                 note="bitwise")
             # what the function needs: sel and wid of every row, the
-            # other per-signal inputs of the selected rows, nbr and w,
-            # and its seven outputs
-            need = (M * 5 + n_sel * (D * 4 + 1 + 12 + 2 * K * 4)
-                    + C * K * 4 + C * D * 4 + C * (2 * D + 5) * 4)
+            # other per-signal inputs and sid of the selected rows, nbr,
+            # w, the age table in and out, stable, and its other outputs
+            need = (M * 5 + n_sel * (D * 4 + 1 + 12 + 2 * K * 4 + 4)
+                    + C * K * 4 + C * D * 4 + C * K * 8 + C
+                    + C * (2 * D + 5) * 4)
             results["update_accum"] = dict(
                 fn=lambda a=aargs: upk.update_accum(*a),
                 plain=lambda a=aargs: upk.update_accum_plain(*a),
                 library=None, err=None, bound=bound_ms(need, 0)[0],
-                by="bytes", note="winner fields bitwise")
-            results["edge_age"] = dict(
-                fn=lambda a=eargs: upk.edge_age(*a),
-                plain=lambda a=eargs: upk.edge_age_plain(*a), library=None,
-                err=0.0, bound=bound_ms(C * K * 13 + 2 * C, 0)[0],
-                by="bytes", note="bitwise")
+                by="bytes", note="winner fields and aged table bitwise")
     results["update_accum"]["err"] = errs["update_accum"]
 
     for name, r in results.items():
@@ -323,6 +331,24 @@ def phase_kernels():
             f"{r['plain_ms']:.4f} ms  library {lib} ms  bound "
             f"{r['bound']:.5f} ms ({r['by']})  max|err| {r['err']:.3g}  "
             f"{per_call}  {r['note']}")
+    for name, host in SHARED.items():
+        results[name] = dict(results[host], err=errs[name],
+                             note=f"inside {host}'s launch")
+    log(f"  edge_age      inside update_accum's launch: max|err| "
+        f"{errs['edge_age']:.3g} (aged table bitwise); the two as separate "
+        f"calls took {PAIR_BEFORE_MS:.4f} ms before the fusion")
+
+    # the port's device launches in one Update phase
+    ours = [n for names in DEVICE_KERNELS.values() for n in names]
+    launched = device_launches(lambda: update_phase_op(*op_args))
+    mine = [o for n in launched for o in ours if o in n]
+    if launched:
+        assert len(mine) == 3, f"update_phase_op launched {mine}"
+        log(f"  update_phase_op at m_t={m_main}: {len(mine)} launches of "
+            f"the port's kernels ({', '.join(mine)}), {len(launched)} "
+            f"device ops in all")
+    else:
+        log("  update_phase_op device launches: not measured")
     one = torch.zeros(1, device=dev)
     log(f"  launch floor: a one-element fill_ takes "
         f"{device_ms(lambda: one.fill_(0), 50):.4f} ms")
@@ -332,9 +358,10 @@ def phase_kernels():
 def counters():
     from repro_torch.kernels.find_winners import kernel as fwk
     from repro_torch.kernels.update_phase import kernel as upk
-    return {"find_winners": fwk.find_winners_top2,
-            "winner_lock": upk.winner_lock_min,
-            "update_accum": upk.update_accum, "edge_age": upk.edge_age}
+    wrappers = {"find_winners": fwk.find_winners_top2,
+                "winner_lock": upk.winner_lock_min,
+                "update_accum": upk.update_accum}
+    return {**wrappers, **{k: wrappers[v] for k, v in SHARED.items()}}
 
 
 def check_state(st):

@@ -1,8 +1,9 @@
-"""The dense Update phase (paper Sec. 2.5) as three hand-written Hopper
-kernels: winner lock, per-unit accumulators, edge aging. kernel.py
-(wrappers + plain versions), ops.py (prologue / epilogue, the engine's
-``UpdatePhaseFn``), ref.py (the one-hot oracle)."""
-from repro_torch.kernels.update_phase.kernel import (BIG_PRIO, edge_age,
+"""The dense Update phase (paper Sec. 2.5) as two hand-written Hopper
+kernels: the winner lock, and the per-unit accumulators with edge aging
+folded into their per-slot launch. kernel.py (wrappers + plain
+versions), ops.py (prologue / epilogue, the engine's ``UpdatePhaseFn``),
+ref.py (the one-hot oracle)."""
+from repro_torch.kernels.update_phase.kernel import (BIG_PRIO,
                                                      edge_age_plain,
                                                      update_accum,
                                                      update_accum_plain,

@@ -2,9 +2,10 @@
 
 ``update_phase_op`` implements the engine's ``UpdatePhaseFn`` contract
 (see ``repro_torch.core.gson.multi``): a PyTorch prologue does the O(m)
-per-signal gathers and decisions, the three kernels do every per-unit
-reduction — the lock's minimum, the weight / habituation / error
-accumulators, edge aging — and a PyTorch epilogue applies the
+per-signal gathers and decisions, two kernels do every per-unit
+reduction — the lock's minimum, then the weight / habituation / error
+accumulators with edge aging and the winner-second reset in one call
+(three device launches in all) — and a PyTorch epilogue applies the
 accumulators elementwise.
 
 Numerics against ``update_phase_reference``:
@@ -23,11 +24,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.gson import topology as topo
 from repro_torch.core.gson.multi import (UpdateOut, stable_units,
                                          update_phase_inputs)
 from repro_torch.core.gson.state import GSONParams, NetworkState
-from repro_torch.kernels.update_phase.kernel import (BIG_PRIO, edge_age,
+from repro_torch.kernels.update_phase.kernel import (BIG_PRIO,
                                                      update_accum,
                                                      winner_lock_min)
 
@@ -70,26 +70,22 @@ def update_phase_op(
      dec_n) = update_phase_inputs(state, wid, d2b, selected, params)
     stable_u = stable_units(state, params)
 
-    # ---- kernel B3: fused per-unit accumulators ----------------------------
+    # ---- kernels B3 + B4: per-unit accumulators, edge aging and the
+    # winner-second refresh in one call -------------------------------------
     def b1(t):
         return t.contiguous()[None]
 
-    w1, nsc, nsx, err_u, decb_u, decn_u, wind = (
+    w1, nsc, nsx, err_u, decb_u, decn_u, _wind, age = (
         o[0] for o in update_accum(
             b1(signals), b1(wid), b1(selected), b1(adapt), b1(scale_b),
             b1(d2b), b1(dec_b), b1(scale_n), b1(dec_n), b1(state.nbr),
-            b1(state.w)))
+            b1(state.w), b1(sid.to(torch.int32)), b1(state.age),
+            b1(stable_u)))
     # neighbor pull epilogue: sum_i s_i * (x_i - w1) == nsx - nsc * w1
     w2 = w1 + (nsx - nsc[:, None] * w1)
     firing = (state.firing if is_gng else
               (state.firing - decb_u - decn_u).clamp(params.h_min, 1.0))
     error = state.error + err_u if is_gng else state.error
-    win_ind = wind > 0.0
-
-    # ---- kernel B4: fused edge aging + winner-second refresh ---------------
-    reset = topo.edge_slots(state.nbr, wid, sid, adapt)
-    age = edge_age(b1(state.age), b1(state.nbr), b1(win_ind), b1(stable_u),
-                   b1(reset))[0]
 
     return UpdateOut(selected=selected, adapt=adapt, ins=ins,
                      w=w2, firing=firing, error=error, age=age)

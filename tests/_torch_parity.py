@@ -9,6 +9,8 @@
   ``m`` buffer rows gives the lock priorities (``multi.py``). A port run
   fed these draws sees the signals and priorities the JAX run drew.
 * numpy round trips of ``NetworkState`` between the packages.
+* ``grown_state`` / ``phase_inputs``: a pool grown by the port and the
+  inputs of one Update phase, for both packages.
 * field-by-field checkers for the numerics contract: discrete fields
   bitwise, floats within a stated tolerance.
 """
@@ -22,8 +24,11 @@ import numpy as np
 import torch
 
 from repro.core.gson import state as jstate
+from repro.core.gson.multi import find_winners_reference
 from repro_torch import convert
-from repro_torch.core.gson.state import FIELDS
+from repro_torch.core.gson.multi import multi_signal_step
+from repro_torch.core.gson.sampling import make_sampler
+from repro_torch.core.gson.state import FIELDS, init_state
 
 # one step: floats within 1e-6 relative (colliding neighbor sums are
 # added in another order); multi-step runs drift a little further
@@ -95,6 +100,35 @@ def to_jax_state(st, rng=None):
 def torch_params(p):
     """JAX ``GSONParams`` -> the port's."""
     return convert.params_from_fields(dataclasses.asdict(p))
+
+
+def grown_state(model: str, capacity=200, max_deg=12, iters=25, m=64,
+                seed=0, device="cpu"):
+    """A non-trivial network: ``iters`` plain port steps on the torus."""
+    p = jstate.GSONParams(model=model, insertion_threshold=0.3)
+    tp = torch_params(p)
+    sampler = make_sampler("torus")
+    g = torch.Generator(device=device).manual_seed(seed)
+    st = init_state(sampler(g, 2), capacity=capacity, max_deg=max_deg,
+                    init_threshold=tp.insertion_threshold)
+    for i in range(iters):
+        prio = torch.randperm(m, generator=g, device=device,
+                              dtype=torch.int32)
+        st = multi_signal_step(st, sampler(g, m), tp, prio,
+                               refresh_states=(i % 5 == 0))
+    return p, tp, st
+
+
+def phase_inputs(st, m=64, masked=None, seed=0):
+    """numpy signals, JAX winners, the lock key and its priorities."""
+    sig = make_sampler("torus")(
+        torch.Generator().manual_seed(100 + seed), m).numpy()
+    wid, sid, d2b, _ = find_winners_reference(
+        jnp.asarray(sig), jnp.asarray(st.w.numpy()),
+        jnp.asarray(st.active.numpy()))
+    k_lock = jax.random.key(7 + seed)
+    mask = None if masked is None else np.arange(m) < masked
+    return sig, wid, sid, d2b, k_lock, mask
 
 
 def assert_states_match(jst, tst, tol=STEP_TOL, tag=""):

@@ -9,9 +9,9 @@ against the JAX package). On the H100:
 This file imports no JAX, so it runs where JAX is not installed.
 Contract: Find Winners ids bitwise where the three nearest distances are
 more than 1e-4 apart, distances within rtol=2e-4, atol=1e-5; the lock
-and edge aging bitwise; the accumulators' winner fields bitwise and
-their neighbor sums within rtol=1e-6, atol=1e-7; every kernel bitwise
-repeatable. The remaining tests run here: no fallback hides a missing
+bitwise; the fused accumulators' winner fields and aged edge table
+bitwise and their neighbor sums within rtol=1e-6, atol=1e-7; every
+kernel bitwise repeatable. The remaining tests run here: no fallback hides a missing
 build or a tensor the kernels do not take.
 """
 from __future__ import annotations
@@ -30,13 +30,14 @@ from repro_torch.core.gson.multi import (find_winners_reference,
                                          multi_signal_step, stable_units,
                                          update_phase_inputs,
                                          update_phase_reference)
+from repro_torch.core.gson.topology import edge_slots
 from repro_torch.core.gson.sampling import make_sampler
 from repro_torch.core.gson.state import GSONParams, init_state
 from repro_torch.kernels import _build
 from repro_torch.kernels.find_winners import (find_winners_top2,
                                               find_winners_top2_plain)
-from repro_torch.kernels.update_phase import (BIG_PRIO, edge_age,
-                                              edge_age_plain, update_accum,
+from repro_torch.kernels.update_phase import (BIG_PRIO, edge_age_plain,
+                                              update_accum,
                                               update_accum_plain,
                                               update_phase_op,
                                               winner_lock_min,
@@ -46,8 +47,9 @@ torch.set_num_threads(1)
 D_TOL = dict(rtol=2e-4, atol=1e-5)
 W_TOL = dict(rtol=1e-6, atol=1e-7)
 ROOT = Path(__file__).resolve().parents[1]
-ACCUM_FIELDS = ("w1", "nsc", "nsx", "err", "decb_u", "decn_u", "wind")
-WINNER_FIELDS = ("w1", "err", "decb_u", "wind")
+ACCUM_FIELDS = ("w1", "nsc", "nsx", "err", "decb_u", "decn_u", "wind",
+                "age")
+EXACT_FIELDS = ("w1", "err", "decb_u", "wind", "age")
 
 
 @pytest.fixture
@@ -161,25 +163,23 @@ def test_update_kernels_match_plain_versions(cuda_device, model, masked):
     selected = (prio == best[0][wid.long()]) & (prio != BIG_PRIO)
     ins, adapt, scale_b, dec_b, _, _, _, scale_n, dec_n = \
         update_phase_inputs(st, wid, d2b, selected, p)
+    stable = stable_units(st, p)
     args = [x[None].contiguous() for x in (
         sig, wid, selected, adapt, scale_b, d2b, dec_b, scale_n, dec_n,
-        st.nbr, st.w)]
+        st.nbr, st.w, sid, st.age, stable)]
     got = update_accum(*args)
     again = update_accum(*args)
     plain = update_accum_plain(*args)
-    names = ("w1", "nsc", "nsx", "err", "decb_u", "decn_u", "wind")
-    for name, k, k2, q in zip(names, got, again, plain):
+    for name, k, k2, q in zip(ACCUM_FIELDS, got, again, plain):
         assert torch.equal(k, k2), f"{name} not repeatable"
-        if name in ("w1", "err", "decb_u", "wind"):
+        if name in EXACT_FIELDS:
             assert torch.equal(k, q), f"{name} not bitwise"
         torch.testing.assert_close(k, q, **W_TOL)
-    win = got[-1][0] > 0
-    reset = torch.rand(st.nbr.shape, device=cuda_device) < 0.05
-    eargs = [x[None].contiguous() for x in (st.age, st.nbr, win,
-                                            stable_units(st, p), reset)]
-    out = edge_age(*eargs)
-    assert torch.equal(out, edge_age(*eargs))
-    assert torch.equal(out, edge_age_plain(*eargs))
+    reset = edge_slots(st.nbr, wid, sid, adapt)
+    assert bool(reset.any())
+    assert torch.equal(got[-1][0], edge_age_plain(
+        st.age[None], st.nbr[None], got[6] > 0, stable[None],
+        reset[None])[0])
 
 
 @pytest.mark.cuda
@@ -202,12 +202,12 @@ def test_update_phase_op_matches_reference_on_card(cuda_device):
 @pytest.mark.cuda
 def test_session_on_card_goes_through_every_kernel(cuda_device):
     counts = [f.launches for f in (find_winners_top2, winner_lock_min,
-                                   update_accum, edge_age)]
+                                   update_accum)]
     spec = gson.RunSpec(variant="multi-fused", capacity=512,
                         max_iterations=40, check_every=10)
     st, stats = gson.run(spec, seed=0)
     after = [f.launches for f in (find_winners_top2, winner_lock_min,
-                                  update_accum, edge_age)]
+                                  update_accum)]
     assert all(a >= c + 40 for a, c in zip(after, counts))
     assert st.w.is_cuda and stats.iterations == 40
     assert int(st.n_active) > 8
@@ -232,8 +232,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# B2 and B3 on synthetic networks: symmetric neighbor tables of any
-# degree, full pools, fleets (B > 1), masked buffers, large pools
+# B2 and the fused B3 + B4 on synthetic networks: symmetric neighbor
+# tables of any degree, full pools, fleets (B > 1), masked buffers, large
+# pools, a table whose symmetry is broken
 
 
 def _symmetric_nbr(rng, C, K, n_active, full):
@@ -274,8 +275,17 @@ def _accum_network(rng, C, K, M, D, full=False, m_t=None, n_active=300):
     sel = (prio == best[wid]) & mask
     adapt = sel & (rng.random(M) < 0.8)
     valid = (nbr[wid] >= 0) & adapt[:, None]
+    # seconds: mostly a neighbor of the winner (an edge to refresh), else
+    # any unit, at times the winner itself
+    pick = rng.integers(0, K, M)
+    sid = np.where(rng.random(M) < 0.7, nbr[wid, pick], -1)
+    other = rng.integers(0, C if full else n_active, M)
+    sid = np.where(sid >= 0, sid, np.where(rng.random(M) < 0.3, wid, other))
     f32 = np.float32
     return dict(
+        sid=sid.astype(np.int32),
+        age=rng.integers(0, 60, (C, K)).astype(f32),
+        stable=rng.random(C) < 0.3,
         prio=prio, x=rng.standard_normal((M, D)).astype(f32), wid=wid,
         sel=sel, adapt=adapt, scale_b=(0.1 * rng.random(M)).astype(f32),
         d2b=rng.random(M).astype(f32),
@@ -286,7 +296,7 @@ def _accum_network(rng, C, K, M, D, full=False, m_t=None, n_active=300):
 
 
 ACCUM_ARGS = ("x", "wid", "sel", "adapt", "scale_b", "d2b", "dec_b",
-              "scale_n", "dec_n", "nbr", "w")
+              "scale_n", "dec_n", "nbr", "w", "sid", "age", "stable")
 
 
 def _accum_fleet(dev, seed, B, C, K, M, D, **kw):
@@ -302,7 +312,7 @@ def _accum_fleet(dev, seed, B, C, K, M, D, **kw):
 
 def _check_accum(got, plain):
     for name, k, q in zip(ACCUM_FIELDS, got, plain):
-        if name in WINNER_FIELDS:
+        if name in EXACT_FIELDS:
             assert torch.equal(k, q), f"{name} not bitwise"
         torch.testing.assert_close(k, q, **W_TOL, msg=name)
 
@@ -315,7 +325,8 @@ def _launch_accum(args, owner):
     f32 = dict(dtype=torch.float32, device=x.device)
     outs = [torch.empty((B, C, D), **f32), torch.empty((B, C), **f32),
             torch.empty((B, C, D), **f32)] + [
-        torch.empty((B, C), **f32) for _ in range(4)]
+        torch.empty((B, C), **f32) for _ in range(4)] + [
+        torch.empty((B, C, K), **f32)]
     _build.launch("update_phase", "repro_update_accum",
                   [*args, owner, *outs], [B, M, C, K, D])
     return outs
@@ -349,8 +360,9 @@ def _stale_owner(rng, net, kind):
 @pytest.mark.parametrize("kind", ["unselected", "other_winner", "negative",
                                   "too_large", "mixed"])
 def test_update_accum_ignores_stale_owner_scratch(cuda_device, kind):
-    """The owner scratch is not cleared: whatever it holds, the outputs
-    are those of a call on a scratch set to -1."""
+    """The owner scratch is not cleared: whatever it holds, the outputs,
+    the aged table among them, are those of a call on a scratch set to
+    -1."""
     _, args, nets = _accum_fleet(cuda_device, 11, 2, 4096, 16, 8192, 3)
     rng = np.random.default_rng(12)
     clean = _launch_accum(args, torch.full((2, 4096), -1, dtype=torch.int32,
@@ -401,6 +413,64 @@ def test_lock_and_accum_on_fleets(cuda_device, K, D, m_t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m_t", [None, 64])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("K", [6, 16, 40])
+def test_fused_aging_matches_plain_version(cuda_device, K, D, B, m_t):
+    """The aged table of the fused launch equals edge_slots +
+    edge_age_plain bitwise and repeats bitwise: K = 6 (rows not 16-byte
+    multiples), 16 (the main path), 40 (the chunked slot loop), fleets,
+    the full buffer and m_t = 64."""
+    _, args, _ = _accum_fleet(cuda_device, 300 + K + D + B, B, 2000, K,
+                              4096, D, m_t=m_t)
+    before = update_accum.launches
+    got = update_accum(*args)
+    again = update_accum(*args)
+    assert update_accum.launches == before + 2
+    wid, sel, adapt, nbr, sid, age, stable = (args[i] for i in (
+        1, 2, 3, 9, 11, 12, 13))
+    reset = torch.stack([edge_slots(nbr[b], wid[b], sid[b], adapt[b])
+                         for b in range(B)])
+    assert bool(reset.any())
+    want = edge_age_plain(age, nbr, got[6] > 0, stable, reset)
+    assert torch.equal(got[-1], again[-1])
+    assert torch.equal(got[-1], want)
+    assert bool((want > age).any()) and bool((want == age).any())
+    _check_accum(got, update_accum_plain(*args))
+
+
+@pytest.mark.cuda
+def test_fused_aging_on_a_table_with_one_broken_row(cuda_device):
+    """Row c names a unit u that does not name it back, twice: aging
+    still equals the plain version (the first of the two slots is reset
+    where c's owner names u as its second, the other ages), and the
+    winner fields stay bitwise; the neighbor sums are not compared, as
+    their walk relies on symmetric edges."""
+    rng = np.random.default_rng(21)
+    net = _accum_network(rng, 2000, 16, 4096, 3)
+    nbr, wid, sel, adapt = net["nbr"], net["wid"], net["sel"], net["adapt"]
+    i0 = np.flatnonzero(adapt)[0]
+    c = wid[i0]
+    winners = [w for w in wid[sel] if w != c and (nbr[w] != c).all()
+               and (nbr[c] != w).all()]
+    u = winners[0]
+    nbr[c, :2] = u            # replaces two of c's edges: one-sided now
+    net["sid"][i0] = u
+    net["stable"][c] = False
+    args = [torch.from_numpy(net[k][None]).to(cuda_device)
+            for k in ACCUM_ARGS]
+    got = update_accum(*args)
+    plain = update_accum_plain(*args)
+    # slot 0 is reset; slot 1 ages by 2: c and u are both winners
+    assert got[-1][0, c, 0] == 0
+    assert got[-1][0, c, 1] == args[12][0, c, 1] + 2
+    for name, k, q in zip(ACCUM_FIELDS, got, plain):
+        if name in EXACT_FIELDS:
+            assert torch.equal(k, q), f"{name} not bitwise"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("C,M,B", [(65536, 8192, 1), (65541, 8191, 2),
                                    (4096, 8190, 3)])
 @pytest.mark.parametrize("m_t", [None, 64])
@@ -431,9 +501,12 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     act = torch.ones((1, 8), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="expected a tensor on"):
         find_winners_top2(sig, w, act)
-    age = torch.zeros((1, 8, 4), device="meta")
+    f = torch.zeros((1, 4), device="meta")
+    i, b = f.int(), f.bool()
+    fk, age = f.new_zeros((1, 4, 2)), f.new_zeros((1, 8, 2))
     with pytest.raises(ValueError, match="expected a tensor on"):
-        edge_age(age, age.int(), act, act, age.bool())
+        update_accum(sig, i, b, b, f, f, f, fk, fk, age.int(), w, i, age,
+                     act)
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -5,7 +5,7 @@ both packages; the same signals, winners and lock priorities (the JAX
 ``permutation(k_lock, m)``) go through:
 
 * the port's ``update_phase_op`` (on the CPU: the plain versions of the
-  three kernels) against the JAX ``update_phase_op(interpret=True)``
+  two kernels) against the JAX ``update_phase_op(interpret=True)``
   (the Pallas kernels), ``update_phase_dense`` (the one-hot oracle) and
   ``update_phase_reference`` (the scatter reference);
 * the port's own ``update_phase_reference`` and ``update_phase_dense``
@@ -29,8 +29,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from _torch_parity import (assert_update_out_match,  # noqa: E402
-                           lock_priorities, t, to_jax_state, torch_params)
-from repro.core.gson.multi import find_winners_reference  # noqa: E402
+                           grown_state, lock_priorities, phase_inputs, t,
+                           to_jax_state, torch_params)
 from repro.core.gson.multi import \
     update_phase_reference as jax_reference  # noqa: E402
 from repro.core.gson.state import GSONParams as JaxParams  # noqa: E402
@@ -38,46 +38,15 @@ from repro.kernels.update_phase.ops import \
     update_phase_op as jax_op  # noqa: E402
 from repro.kernels.update_phase.ref import \
     update_phase_dense as jax_dense  # noqa: E402
-from repro_torch.core.gson.multi import (multi_signal_step,  # noqa: E402
-                                         update_phase_reference)
+from repro_torch.core.gson.multi import \
+    update_phase_reference  # noqa: E402
 from repro_torch.core.gson.multi import \
     find_winners_reference as find_winners_reference_t  # noqa: E402
 from repro_torch.core.gson.sampling import make_sampler  # noqa: E402
-from repro_torch.core.gson.state import init_state  # noqa: E402
 from repro_torch.kernels.update_phase import (  # noqa: E402
-    edge_age, update_accum, update_phase_dense, update_phase_op,
-    winner_lock_min)
+    update_accum, update_phase_dense, update_phase_op, winner_lock_min)
 
 torch.set_num_threads(1)
-
-
-def grown_state(model: str, capacity=200, max_deg=12, iters=25, m=64,
-                seed=0, device="cpu"):
-    """A non-trivial network: ``iters`` plain port steps on the torus."""
-    p = JaxParams(model=model, insertion_threshold=0.3)
-    tp = torch_params(p)
-    sampler = make_sampler("torus")
-    g = torch.Generator(device=device).manual_seed(seed)
-    st = init_state(sampler(g, 2), capacity=capacity, max_deg=max_deg,
-                    init_threshold=tp.insertion_threshold)
-    for i in range(iters):
-        prio = torch.randperm(m, generator=g, device=device,
-                              dtype=torch.int32)
-        st = multi_signal_step(st, sampler(g, m), tp, prio,
-                               refresh_states=(i % 5 == 0))
-    return p, tp, st
-
-
-def phase_inputs(st, m=64, masked=None, seed=0):
-    """numpy signals, JAX winners, the lock key and its priorities."""
-    sig = make_sampler("torus")(
-        torch.Generator().manual_seed(100 + seed), m).numpy()
-    wid, sid, d2b, _ = find_winners_reference(
-        jnp.asarray(sig), jnp.asarray(st.w.numpy()),
-        jnp.asarray(st.active.numpy()))
-    k_lock = jax.random.key(7 + seed)
-    mask = None if masked is None else np.arange(m) < masked
-    return sig, wid, sid, d2b, k_lock, mask
 
 
 def run_both(p, tp, st, sig, wid, sid, d2b, k_lock, mask, fn_j, fn_t, **kw):
@@ -158,9 +127,7 @@ def test_winner_lock_survivors_are_distinct():
 def test_cpu_tensors_take_the_plain_versions():
     _, tp, st = grown_state("soam", iters=8)
     sig, wid, sid, d2b, k_lock, _ = phase_inputs(st)
-    counts = (winner_lock_min.launches, update_accum.launches,
-              edge_age.launches)
+    counts = (winner_lock_min.launches, update_accum.launches)
     update_phase_op(st, t(sig), t(wid), t(sid), t(d2b),
                     lock_priorities(k_lock, 64), tp)
-    assert (winner_lock_min.launches, update_accum.launches,
-            edge_age.launches) == counts
+    assert (winner_lock_min.launches, update_accum.launches) == counts
