@@ -35,9 +35,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and QE are printed beside the JAX CPU result (not asserted: the draws
    differ). Last, ``PAIRS`` alternating pairs of ``cuda-full`` and
    ``reference`` runs time the two backends end to end.
-5. profile — where the main path's time goes (``torch.profiler``):
-   device busy share and top kernels; informational, never fails.
-6. report — the ``kernels`` JSON line, the card's line, and last
+5. fleet kernels — each wrapper at B = 8 (eight pools grown by a fleet
+   on the ``reference`` backend, the main path's shapes) against its
+   plain version, with the same tolerances, unmasked and masked by each
+   network's m-schedule; device ms and device launches per call.
+6. fleet — ``FleetSession(FleetSpec.broadcast(RunSpec(), seeds=range(8)))``
+   for ``FLEET_ITERS`` iterations with ``multi`` and ``multi-fused``,
+   every launch counter set to 0 before and read after: each wrapper
+   launches once per fleet iteration for the whole batch, and every
+   network's state fields and history rows equal those of its own
+   ``Session(RunSpec(), seed=i)`` (``qe`` within 1e-6; its mean runs over
+   a batch of another shape). Network-iterations/s at B = 1 (the eight
+   sessions) and at B = 8.
+7. checkpoint — a ``Session`` runs ``CKPT_ITERS`` iterations, checkpoints,
+   is dropped, is restored and runs as many again: its rows and state
+   equal an uninterrupted run's; the same for a ``FleetSession`` at
+   B = 4; for ``multi`` and ``multi-fused``.
+8. profile — where the main path's time goes (``torch.profiler``):
+   device busy share and top kernels at B = 1, then device ops and
+   device time per iteration and the busy share of the fleet at B = 8,
+   whose window must show one launch of each of the port's device
+   kernels per fleet iteration (a profiler that records nothing prints
+   "not measured" instead).
+9. report — the ``kernels`` JSON line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs ``src/repro_torch`` beside it and a CUDA device; without
@@ -52,6 +72,7 @@ import subprocess
 import sys
 import time
 import traceback
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -61,7 +82,14 @@ OUT = ROOT / "chiprun_out"
 SEED = 7
 HORIZON = 64           # iterations over which cuda-full == reference rows
 MAIN_ITERS = 256       # main-path budget per variant
-PAIRS, PAIR_ITERS = 5, 128   # cuda-full vs reference timing pairs
+PAIRS, PAIR_ITERS = 3, 128   # cuda-full vs reference timing pairs
+FLEET_B, FLEET_ITERS = 8, 128     # the fleet phase
+# the checkpoint phase cuts at CKPT_ITERS, a multiple of the fused
+# superstep (64), so multi-fused emits the rows of an uninterrupted run
+CKPT_B, CKPT_ITERS = 4, 64
+STATE_FIELDS = ("w", "active", "nbr", "age", "error", "firing",
+                "threshold", "topo_state", "inconsistent_for", "n_active",
+                "signal_count", "discarded")
 GATE = dict(capacity=768, iterations=1500, jax_chi=2, jax_units=94,
             jax_qe=0.02538)
 
@@ -116,11 +144,11 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_launches(fn) -> list:
+def device_launches(fn, calls: int = 4) -> list:
     """Names of the device kernels that one ``fn()`` launches, from
-    ``torch.profiler`` (empty if it records no device activity). A
-    session can come back empty now and then, so an empty one is taken
-    again, up to three times in all."""
+    ``torch.profiler`` over ``calls`` calls in one window (empty if it
+    records no device activity). A window can come back empty now and
+    then, so an empty one is taken again, up to three times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -128,12 +156,15 @@ def device_launches(fn) -> list:
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            return names
+        seen = Counter(e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        # a window missing some of the calls' ops is taken again too
+        if seen and all(n % calls == 0 for n in seen.values()):
+            return [name for name, n in sorted(seen.items())
+                    for _ in range(n // calls)]
     return []
 
 
@@ -192,7 +223,7 @@ def grown_pool(seed: int):
                         max_iterations=128)
     sess = gson.Session(spec, seed=seed)
     sess.run()
-    return sess.state, sess.rt.params
+    return sess.state, sess.cohorts[0].params
 
 
 def phase_kernels():
@@ -479,55 +510,345 @@ def phase_main_path():
     return launches
 
 
-def phase_profile(iters: int = 32):
-    """Where the time of the main path goes: ``torch.profiler`` over
-    ``iters`` fused iterations at the default geometry. Prints the
-    device's busy share of the wall window and the top kernels by device
-    time; the full table goes to ``chiprun_out/profile.txt``.
-    Informational: a profiler that records no device time prints "not
-    measured" and does not fail the run."""
+def grown_fleet(seeds):
+    """Pools at the default geometry, one per seed, grown together by a
+    short fleet run on the plain backend."""
+    from repro_torch import gson
+    spec = gson.RunSpec(variant="multi-fused", backend="reference",
+                        max_iterations=128)
+    fleet = gson.FleetSession(gson.FleetSpec.broadcast(spec, seeds=seeds))
+    fleet.run()
+    c = fleet.cohorts[0]
+    return c.fstate.nets, c.params
+
+
+def phase_fleet_kernels():
+    """Each wrapper at B = FLEET_B against its plain version, at the main
+    path's shapes on eight grown pools, unmasked and masked by each
+    network's m-schedule; device ms and launches per call."""
+    import torch
+    from repro_torch.core.gson.batch import take
+    from repro_torch.core.gson.multi import (find_winners_reference,
+                                             stable_units,
+                                             update_phase_inputs)
+    from repro_torch.core.gson.sampling import make_sampler
+    from repro_torch.core.gson.superstep import next_pow2
+    from repro_torch.kernels.find_winners import kernel as fwk
+    from repro_torch.kernels.update_phase import kernel as upk
+
+    dev = torch.device("cuda")
+    B = FLEET_B
+    nets, params = grown_fleet(range(SEED, SEED + B))
+    C, K, D = nets.capacity, nets.max_deg, nets.dim
+    M = params.max_parallel
+    units = nets.n_active.tolist()
+    log(f"fleet kernels: B={B} pools of {units} active units, C={C} K={K} "
+        f"d={D} M={M}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sampler = make_sampler("sphere")
+    sig = torch.stack([sampler(g, M) for _ in range(B)])
+    w, act = nets.w.contiguous(), nets.active.contiguous()
+    timed = {}
+
+    # ---- B1
+    d2k, idk = fwk.find_winners_top2(sig, w, act)
+    d2k2, idk2 = fwk.find_winners_top2(sig, w, act)
+    d2p, idp = fwk.find_winners_top2_plain(sig, w, act)
+    torch.cuda.synchronize()
+    assert torch.equal(d2k, d2k2) and torch.equal(idk, idk2), \
+        "find_winners not repeatable at B=8"
+    torch.testing.assert_close(d2k, d2p, rtol=2e-4, atol=1e-5)
+    n_ok = 0
+    for b in range(B):
+        ok = near_tie_free(sig[b], w[b], act[b])
+        assert torch.equal(idk[b][ok], idp[b][ok]), \
+            f"find_winners ids differ in network {b}"
+        n_ok += int(ok.sum())
+    timed["find_winners"] = (lambda: fwk.find_winners_top2(sig, w, act),
+                             float((d2k - d2p).abs().max()),
+                             f"ids equal on {n_ok}/{B * M} tie-free rows")
+
+    # ---- B2 and the fused B3 + B4: the full buffer, and each network's
+    # m-schedule mask as the main path hands it
+    wid, sid, d2b, _ = find_winners_reference(sig, w, act)
+    prio = torch.stack([torch.randperm(M, generator=g, device=dev,
+                                       dtype=torch.int32) for _ in range(B)])
+    stable = stable_units(nets, params)
+    m_main = torch.tensor([min(next_pow2(n), M) for n in units],
+                          device=dev)
+    for label, m_t in (("M", torch.full_like(m_main, M)),
+                       ("m_t", m_main)):
+        mask = torch.arange(M, device=dev) < m_t[:, None]
+        prio_m = torch.where(mask, prio, upk.BIG_PRIO).contiguous()
+        largs = (wid.contiguous(), prio_m, C)
+        best = upk.winner_lock_min(*largs)
+        assert torch.equal(best, upk.winner_lock_min(*largs)), "lock repeat"
+        assert torch.equal(best, upk.winner_lock_min_plain(*largs)), \
+            "winner_lock differs at B=8"
+        selected = (prio_m == take(best, wid.long())) & mask
+        ins, adapt, scale_b, dec_b, _, _, _, scale_n, dec_n = \
+            update_phase_inputs(nets, wid, d2b, selected, params)
+        aargs = [x.contiguous() for x in (
+            sig, wid, selected, adapt, scale_b, d2b, dec_b, scale_n, dec_n,
+            nets.nbr, w, sid, nets.age, stable)]
+        got = upk.update_accum(*aargs)
+        again = upk.update_accum(*aargs)
+        plain = upk.update_accum_plain(*aargs)
+        err = 0.0
+        names = ("w1", "nsc", "nsx", "err", "decb_u", "decn_u", "wind",
+                 "age")
+        for name, k, k2, p in zip(names, got, again, plain):
+            assert torch.equal(k, k2), f"update_accum {name} not repeatable"
+            if name in ("w1", "err", "decb_u", "wind", "age"):
+                assert torch.equal(k, p), f"update_accum {name} differs"
+            torch.testing.assert_close(k, p, rtol=1e-6, atol=1e-7)
+            err = max(err, float((k - p).abs().max()))
+        log(f"  B={B} buffer {label}: {int(selected.sum())} lock survivors "
+            f"over the batch; B2 bitwise, the fused B3 + B4 winner fields "
+            f"and aged table bitwise, sums within {err:.3g}")
+        if label == "M":
+            timed["winner_lock"] = (
+                lambda a=largs: upk.winner_lock_min(*a), 0.0, "bitwise")
+            timed["update_accum"] = (
+                lambda a=aargs: upk.update_accum(*a), err,
+                "winner fields and aged table bitwise")
+    out = {}
+    for name, (fn, err, note) in timed.items():
+        ms = device_ms(fn, 50)
+        launched = device_launches(fn)
+        if launched:
+            want = DEVICE_KERNELS[name]
+            assert len(launched) == len(want) and all(
+                any(k in n for k in want) for n in launched), (
+                f"{name} at B={B} launched {launched}, expected {want}")
+            per_call = f"{len(launched)} device launch(es) per call"
+        else:
+            per_call = ("device launches per call not measured here "
+                        "(profiler empty; the profile phase counts them "
+                        "per fleet iteration)")
+        out[name] = ms
+        log(f"  {name:13s} B={B}: kernel {ms:.4f} ms ({ms / B:.5f} ms per "
+            f"network)  max|err| {err:.3g}  {per_call}  {note}")
+    return out
+
+
+def assert_same_network(a, b, rows_a, rows_b, ctx):
+    """States bitwise; rows equal with ``qe`` within 1e-6 relative.
+    Returns the largest relative ``qe`` difference."""
+    import torch
+    for name in STATE_FIELDS:
+        assert torch.equal(getattr(a, name), getattr(b, name)), \
+            f"{ctx}: {name} differs"
+    assert len(rows_a) == len(rows_b) > 0, ctx
+    worst = 0.0
+    for x, y in zip(rows_a, rows_b):
+        assert (x["iteration"], x["units"], x["signals"]) == (
+            y["iteration"], y["units"], y["signals"]), (ctx, x, y)
+        rel = abs(x["qe"] - y["qe"]) / max(abs(y["qe"]), 1e-30)
+        assert rel <= 1e-6, (ctx, x, y)
+        worst = max(worst, rel)
+    return worst
+
+
+def phase_fleet():
+    """``FleetSession`` at B = FLEET_B on the default RunSpec against the
+    eight sessions it stands for; one launch per wrapper per fleet
+    iteration."""
+    import torch
+    from repro_torch import gson
+    wrappers = {n: f for n, f in counters().items() if n not in SHARED}
+    out = {}
+    for variant in ("multi", "multi-fused"):
+        spec = gson.RunSpec(variant=variant, max_iterations=FLEET_ITERS)
+        sessions, t_sess = [], 0.0
+        for i in range(FLEET_B):
+            sess = gson.Session(spec, seed=i)
+            sess._start()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.run()
+            torch.cuda.synchronize()
+            t_sess += time.perf_counter() - t0
+            sessions.append(sess)
+        fleet = gson.FleetSession(gson.FleetSpec.broadcast(
+            spec, seeds=range(FLEET_B)))
+        fleet._start()
+        torch.cuda.synchronize()
+        for f in wrappers.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        fleet.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in wrappers.items()}
+        assert list(fleet.iterations) == [FLEET_ITERS] * FLEET_B, \
+            fleet.iterations
+        assert all(n == FLEET_ITERS for n in launches.values()), (
+            f"{variant}: {launches} launches in {FLEET_ITERS} fleet "
+            "iterations, expected one per iteration")
+        worst = 0.0
+        for i, sess in enumerate(sessions):
+            st, stats = fleet.result(i)
+            worst = max(worst, assert_same_network(
+                st, sess.result()[0], stats.history, sess.stats.history,
+                f"{variant} network {i}"))
+        rate1 = FLEET_B * FLEET_ITERS / t_sess
+        rate8 = FLEET_B * FLEET_ITERS / wall
+        out[variant] = (rate1, rate8, launches)
+        log(f"fleet {variant}: B={FLEET_B} x {FLEET_ITERS} it, launches "
+            f"{launches} (one per fleet iteration); {FLEET_B}/{FLEET_B} "
+            f"networks equal to their sessions (state fields bitwise, "
+            f"rows equal, qe max rel diff {worst:.3g}); network-it/s "
+            f"B=1 {rate1:.1f} (eight sessions), B={FLEET_B} {rate8:.1f} "
+            f"(x{rate8 / rate1:.2f})")
+    return out
+
+
+def phase_checkpoint():
+    """Cut a run at CKPT_ITERS, checkpoint, drop it, restore and finish:
+    rows and state equal an uninterrupted run's, for a Session and for a
+    FleetSession at B = CKPT_B."""
+    import shutil
+    from repro_torch import gson
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    for variant in ("multi", "multi-fused"):
+        spec = gson.RunSpec(variant=variant, max_iterations=2 * CKPT_ITERS)
+        shutil.rmtree(root, ignore_errors=True)
+        full = gson.Session(spec, seed=SEED)
+        full.run()
+        cut = gson.Session(spec, seed=SEED, checkpoint_dir=str(root))
+        cut.run(budget=CKPT_ITERS)
+        cut.checkpoint()
+        del cut
+        back = gson.Session.restore(spec, str(root))
+        assert back.iteration == CKPT_ITERS and back.state.w.device == \
+            full.state.w.device
+        back.run()
+        assert back.stats.history == full.stats.history, variant
+        assert_same_network(back.result()[0], full.result()[0],
+                            back.stats.history, full.stats.history,
+                            f"{variant} session")
+
+        fs = gson.FleetSpec.broadcast(spec, seeds=range(CKPT_B))
+        shutil.rmtree(root, ignore_errors=True)
+        fleet = gson.FleetSession(fs)
+        fleet.run()
+        cut = gson.FleetSession(fs, checkpoint_dir=str(root))
+        cut.run(budget=CKPT_ITERS)
+        cut.checkpoint()
+        del cut
+        back = gson.FleetSession.restore(fs, str(root))
+        back.run()
+        for i in range(CKPT_B):
+            assert back.stats[i].history == fleet.stats[i].history
+            assert_same_network(back.result(i)[0], fleet.result(i)[0],
+                                back.stats[i].history,
+                                fleet.stats[i].history,
+                                f"{variant} fleet network {i}")
+        log(f"checkpoint {variant}: Session and FleetSession (B={CKPT_B}) "
+            f"cut at {CKPT_ITERS}, restored, run to {2 * CKPT_ITERS}: rows "
+            f"and state fields equal to the uninterrupted runs "
+            f"({len(full.stats.history)} and {CKPT_B} x "
+            f"{len(fleet.stats[0].history)} rows)")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def profile_window(run):
+    """``torch.profiler`` around ``run()``: (wall s, device busy s, device
+    ops, {kernel name: (launches, us)}, profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch import gson
-    sess = gson.Session(gson.RunSpec(variant="multi-fused",
-                                     max_iterations=10_000), seed=SEED)
-    sess.run(budget=64)                    # warm, pool grown a little
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.run(budget=iters)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {}
+    kernels, n_ops = {}, 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        dur = e.time_range.end - e.time_range.start
-        kernels[e.name] = kernels.get(e.name, 0) + dur
-    busy = sum(kernels.values()) / 1e6
+        n_ops += 1
+        cnt, us = kernels.get(e.name, (0, 0))
+        kernels[e.name] = (cnt + 1, us + e.time_range.end
+                           - e.time_range.start)
+    busy = sum(us for _, us in kernels.values()) / 1e6
+    return wall, busy, n_ops, kernels, prof
+
+
+def phase_profile(iters: int = 32, fleet_iters: int = 16):
+    """Where the time goes: ``torch.profiler`` over ``iters`` fused
+    iterations of one session at the default geometry (busy share, top
+    kernels; the full table goes to ``chiprun_out/profile.txt``), then
+    over ``fleet_iters`` iterations of a B = FLEET_B fleet (device ops
+    and device ms per iteration, busy share, and the port's device
+    launches per fleet iteration, which must be those of
+    ``DEVICE_KERNELS``, once each per iteration for the whole batch).
+    A profiler that records no device time prints "not measured"; only
+    a wrong launch count fails the run."""
+    from repro_torch import gson
+    spec = gson.RunSpec(variant="multi-fused", max_iterations=10_000)
+    sess = gson.Session(spec, seed=SEED)
+    sess.run(budget=64)                    # warm, pool grown a little
+    wall, busy, n_ops, kernels, prof = profile_window(
+        lambda: sess.run(budget=iters))
+    ours = [n for names in DEVICE_KERNELS.values() for n in names]
     if busy <= 0:
         log("profile: not measured (no device time recorded)")
+    else:
+        OUT.mkdir(exist_ok=True)
+        with open(OUT / "profile.txt", "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_cuda_time_total", row_limit=60))
+            for name, (_, us) in sorted(kernels.items(),
+                                        key=lambda kv: -kv[1][1]):
+                f.write(f"{us:12.1f} us  {name}\n")
+        log(f"profile B=1 ({iters} fused iterations, units "
+            f"{int(sess.state.n_active)}): wall {wall * 1e3:.2f} ms, device "
+            f"busy {busy * 1e3:.2f} ms = {100 * busy / wall:.1f}% "
+            f"({100 - 100 * busy / wall:.1f}% idle), {n_ops / iters:.0f} "
+            f"device ops per iteration, {busy * 1e3 / iters:.3f} ms device "
+            f"time per iteration")
+        mine = sum(us for n, (_, us) in kernels.items()
+                   if any(o in n for o in ours))
+        log(f"  the port's kernels: {mine / 1e3:.3f} ms = "
+            f"{100 * mine / 1e6 / busy:.1f}% of device time")
+        for name, (_, us) in sorted(kernels.items(),
+                                    key=lambda kv: -kv[1][1])[:8]:
+            log(f"  {us / iters:9.1f} us/it  {name[:90]}")
+
+    fleet = gson.FleetSession(gson.FleetSpec.broadcast(
+        spec, seeds=range(FLEET_B)))
+    fleet.run(budget=64)
+    assert fleet.active, "the profiled fleet stopped before its window"
+    wall, busy, n_ops, kernels, _ = profile_window(
+        lambda: fleet.run(budget=fleet_iters))
+    if busy <= 0:
+        log(f"profile B={FLEET_B}: not measured (no device time recorded)")
         return
-    OUT.mkdir(exist_ok=True)
-    with open(OUT / "profile.txt", "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=60))
-        for name, us in sorted(kernels.items(), key=lambda kv: -kv[1]):
-            f.write(f"{us:12.1f} us  {name}\n")
-    n_launch = sum(1 for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    log(f"profile ({iters} fused iterations, units "
-        f"{int(sess.state.n_active)}): wall {wall * 1e3:.2f} ms, device "
-        f"busy {busy * 1e3:.2f} ms = {100 * busy / wall:.1f}% "
-        f"({100 - 100 * busy / wall:.1f}% idle), {n_launch / iters:.0f} "
-        f"device ops per iteration")
-    ours = [n for names in DEVICE_KERNELS.values() for n in names]
-    mine = sum(us for n, us in kernels.items() if any(o in n for o in ours))
-    log(f"  the port's kernels: {mine / 1e3:.3f} ms = "
-        f"{100 * mine / 1e6 / busy:.1f}% of device time")
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  {us / iters:9.1f} us/it  {name[:90]}")
+    mine = sum(us for n, (_, us) in kernels.items()
+               if any(o in n for o in ours))
+    log(f"profile B={FLEET_B} ({fleet_iters} fused fleet iterations, units "
+        f"{fleet.cohorts[0].units.tolist()}): wall {wall * 1e3:.2f} ms, "
+        f"device busy {busy * 1e3:.2f} ms = {100 * busy / wall:.1f}% "
+        f"({100 - 100 * busy / wall:.1f}% idle), {n_ops / fleet_iters:.0f} "
+        f"device ops per iteration, {busy * 1e3 / fleet_iters:.3f} ms "
+        f"device time per iteration ({busy * 1e3 / fleet_iters / FLEET_B:.3f}"
+        f" per network); the port's kernels {100 * mine / 1e6 / busy:.1f}%")
+    per_it = {}
+    for wrapper, names in DEVICE_KERNELS.items():
+        for o in names:
+            n = sum(cnt for k, (cnt, _) in kernels.items() if o in k)
+            per_it[o] = n / fleet_iters
+        assert all(per_it[o] == 1 for o in names), (
+            f"{wrapper} at B={FLEET_B}: {[per_it[o] for o in names]} "
+            f"launches of {names} per fleet iteration, expected 1 each")
+    log(f"  the port's device launches per fleet iteration at "
+        f"B={FLEET_B}: {per_it} (one of each for the whole batch)")
+    for name, (_, us) in sorted(kernels.items(),
+                                key=lambda kv: -kv[1][1])[:6]:
+        log(f"  {us / fleet_iters:9.1f} us/it  {name[:90]}")
 
 
 def main() -> int:
@@ -551,14 +872,14 @@ def main() -> int:
         results = phase_kernels()
         launches = phase_main_path()
         phase_paired_timing()
+        phase_fleet_kernels()
+        phase_fleet()
+        phase_checkpoint()
+        phase_profile()
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    try:
-        phase_profile()
-    except Exception as e:  # noqa: BLE001 — a measurement, not a check
-        log(f"profile: not measured ({type(e).__name__}: {e})")
     from repro_torch.kernels import _build
     sources = {"find_winners": _build.SOURCES["find_winners"]}
     sources.update({k: _build.SOURCES["update_phase"]

@@ -1,7 +1,8 @@
 """Quality / faithfulness metrics for reconstructed networks.
 
-``quantization_error``, ``qe_convergence``, ``edge_count`` and
-``summary`` work on tensors. The Euler characteristic and the topology
+``quantization_error`` and ``qe_convergence`` work on tensors, per
+network of a fleet (or on one network); ``edge_count`` and ``summary`` on
+one network. The Euler characteristic and the topology
 gate are host-side (numpy) reporting utilities, as in
 ``repro.core.gson.metrics``: for a converged SOAM triangulation V - E + F
 must equal 2 - 2*genus of the sampled surface.
@@ -13,22 +14,28 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.gson.batch import batchable
 from repro_torch.core.gson.state import STATE_NAMES, NetworkState
 
 
+@batchable(3)
 def quantization_error(state: NetworkState,
                        probes: torch.Tensor) -> torch.Tensor:
-    """Mean squared distance from probe signals to their winner."""
-    x2 = (probes * probes).sum(dim=1, keepdim=True)
-    w2 = (state.w * state.w).sum(dim=1)
-    d2 = x2 - (2.0 * probes) @ state.w.T + w2[None, :]
-    d2 = torch.where(state.active[None, :], d2, torch.inf)
-    return d2.min(dim=1).values.clamp(min=0.0).mean()
+    """Mean squared distance from probe signals to their winner, per
+    network: probes (B, P, d) -> (B,)."""
+    x2 = (probes * probes).sum(dim=-1, keepdim=True)
+    w2 = (state.w * state.w).sum(dim=-1)
+    d2 = (x2 - torch.bmm(2.0 * probes, state.w.transpose(1, 2))
+          + w2[:, None, :])
+    d2 = torch.where(state.active[:, None, :], d2, torch.inf)
+    return d2.min(dim=-1).values.clamp(min=0.0).mean(dim=-1)
 
 
+@batchable(3)
 def qe_convergence(state: NetworkState, probes: torch.Tensor,
                    threshold: float):
-    """GNG/GWR termination predicate: (done, qe), both device scalars."""
+    """GNG/GWR termination predicate: (done, qe), both (B,) on the
+    device."""
     qe = quantization_error(state, probes)
     done = (qe < threshold) & (state.n_active > 8)
     return done, qe

@@ -10,6 +10,11 @@ The PyTorch counterpart of ``repro.core.gson.state``: a dataclass of
 tensors with the same field names. The JAX state also carries its PRNG
 key as a leaf; here every random draw goes through ``repro_torch.rng``
 instead, so the state holds tensors only.
+
+A fleet of B networks is one ``NetworkState`` whose every leaf has a
+leading ``(B,)`` axis (``init_fleet``, ``stack_states``); the step and
+the structural tail are written for that form, and an unbatched state is
+run as a fleet of one (``repro_torch.core.gson.batch``).
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ FIELDS = ("w", "active", "nbr", "age", "error", "firing", "threshold",
 class NetworkState:
     """The full mutable state of a growing self-organizing network."""
 
+    # shapes of one network; a fleet puts (B,) in front of every one
     w: torch.Tensor                 # (capacity, dim) f32 reference vectors
     active: torch.Tensor            # (capacity,) bool
     nbr: torch.Tensor               # (capacity, max_deg) i32, NO_NBR = empty
@@ -59,15 +65,15 @@ class NetworkState:
 
     @property
     def capacity(self) -> int:
-        return self.w.shape[0]
+        return self.w.shape[-2]
 
     @property
     def dim(self) -> int:
-        return self.w.shape[1]
+        return self.w.shape[-1]
 
     @property
     def max_deg(self) -> int:
-        return self.nbr.shape[1]
+        return self.nbr.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -76,47 +82,72 @@ class NetworkState:
     def replace(self, **kw) -> "NetworkState":
         return dataclasses.replace(self, **kw)
 
+    def map(self, fn) -> "NetworkState":
+        """``fn`` applied to every leaf."""
+        return NetworkState(**{f: fn(getattr(self, f)) for f in FIELDS})
 
-def init_state(
+    def network(self, i: int) -> "NetworkState":
+        """Network ``i`` of a fleet, unbatched (views, no copy)."""
+        return self.map(lambda x: x[i])
+
+
+def init_fleet(
     seed_points: torch.Tensor,
     *,
     capacity: int,
     max_deg: int,
     init_threshold: float = 0.2,
 ) -> NetworkState:
-    """Fresh network whose first ``len(seed_points)`` units are active
-    and unconnected. The device is that of ``seed_points``."""
+    """B fresh networks from ``seed_points`` (B, n_seed, dim): in each,
+    the first ``n_seed`` units are active and unconnected. The device is
+    that of ``seed_points``."""
     seed_points = seed_points.to(torch.float32)
-    n_seed, dim = seed_points.shape
+    B, n_seed, dim = seed_points.shape
     dev = seed_points.device
-    w = torch.zeros((capacity, dim), dtype=torch.float32, device=dev)
-    w[:n_seed] = seed_points
-    active = torch.zeros((capacity,), dtype=torch.bool, device=dev)
-    active[:n_seed] = True
+    w = torch.zeros((B, capacity, dim), dtype=torch.float32, device=dev)
+    w[:, :n_seed] = seed_points
+    active = torch.zeros((B, capacity), dtype=torch.bool, device=dev)
+    active[:, :n_seed] = True
 
-    def scalar(v: int) -> torch.Tensor:
-        return torch.tensor(v, dtype=torch.int32, device=dev)
+    def full(shape, value, dtype):
+        return torch.full((B, *shape), value, dtype=dtype, device=dev)
 
+    i32, f32 = torch.int32, torch.float32
     return NetworkState(
         w=w,
         active=active,
-        nbr=torch.full((capacity, max_deg), NO_NBR, dtype=torch.int32,
-                       device=dev),
-        age=torch.zeros((capacity, max_deg), dtype=torch.float32,
-                        device=dev),
-        error=torch.zeros((capacity,), dtype=torch.float32, device=dev),
-        firing=torch.ones((capacity,), dtype=torch.float32, device=dev),
-        threshold=torch.full((capacity,), init_threshold,
-                             dtype=torch.float32, device=dev),
-        topo_state=torch.zeros((capacity,), dtype=torch.int32, device=dev),
-        inconsistent_for=torch.zeros((capacity,), dtype=torch.int32,
-                                     device=dev),
-        n_active=scalar(n_seed),
-        signal_count=scalar(0),
-        discarded=scalar(0),
-        dropped_edges=scalar(0),
-        dropped_units=scalar(0),
+        nbr=full((capacity, max_deg), NO_NBR, i32),
+        age=full((capacity, max_deg), 0.0, f32),
+        error=full((capacity,), 0.0, f32),
+        firing=full((capacity,), 1.0, f32),
+        threshold=full((capacity,), init_threshold, f32),
+        topo_state=full((capacity,), 0, i32),
+        inconsistent_for=full((capacity,), 0, i32),
+        n_active=full((), n_seed, i32),
+        signal_count=full((), 0, i32),
+        discarded=full((), 0, i32),
+        dropped_edges=full((), 0, i32),
+        dropped_units=full((), 0, i32),
     )
+
+
+def init_state(seed_points: torch.Tensor, *, capacity: int, max_deg: int,
+               init_threshold: float = 0.2) -> NetworkState:
+    """One fresh network from ``seed_points`` (n_seed, dim): the B = 1
+    view of :func:`init_fleet`."""
+    return init_fleet(seed_points[None], capacity=capacity, max_deg=max_deg,
+                      init_threshold=init_threshold).network(0)
+
+
+def stack_states(states) -> NetworkState:
+    """Unbatched ``NetworkState``s stacked along a new leading axis."""
+    return NetworkState(**{f: torch.stack([getattr(s, f) for s in states])
+                           for f in FIELDS})
+
+
+def unstack_states(nets: NetworkState) -> list[NetworkState]:
+    """A stacked ``NetworkState`` split back into B unbatched ones."""
+    return [nets.network(i) for i in range(nets.w.shape[0])]
 
 
 @dataclass(frozen=True)

@@ -66,7 +66,7 @@ class Registry(Generic[T]):
 class ModelDef:
     """A registered rule set with its published defaults. SOAM runs end
     on its topology criterion, GNG and GWR on quantization error
-    (``superstep.convergence_check``)."""
+    (``core.gson.fleet.fleet_check``)."""
 
     name: str
     params: GSONParams

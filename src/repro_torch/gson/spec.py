@@ -61,7 +61,7 @@ def resolve_variant(variant: str | Any) -> VariantStrategy:
     if not isinstance(variant, VariantStrategy):
         raise TypeError(
             f"variant must be a registered name or a VariantStrategy "
-            f"(prepare/step/convergence hooks); got {type(variant)!r}")
+            f"(name, config_cls); got {type(variant)!r}")
     return variant
 
 

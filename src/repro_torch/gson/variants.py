@@ -2,32 +2,25 @@
 
 The paper's contribution is a *variant* of the growing-network loop —
 same rule set, different execution schedule (Sec. 2.2: the multi-signal
-iteration). Each variant is a strategy object with three hooks:
+iteration). A strategy is a stateless singleton registered in
+``VARIANTS`` with a typed config dataclass (``config_cls``) and the two
+things the one run driver (``repro_torch.gson.fleet.Cohort.tick``) asks
+of it:
 
-  prepare(rt)                 — resolve derived config once per run
-  step(rt, state, it, n)      — advance up to ``n`` iterations; returns a
-                                StepResult
-  convergence(rt, state)      — the termination predicate
+  fleet_mode                  — "host": one iteration per tick, the
+                                paper's multi-signal loop; "device": whole
+                                fused supersteps per tick
+  fleet_cfg(spec, params, vcfg) — the loop config (``SuperstepConfig``)
 
-and a typed config dataclass (``config_cls``). Strategies are stateless
-singletons registered in ``VARIANTS``; per-run state lives in the
-:class:`Runtime` the session owns, the run's RNG seam included
-(``rt.draws``, see ``repro_torch.rng``).
-
-In the JAX package both multi-signal variants step through the fleet
-core at B=1; here they step one network directly, in the fleet core's
-order (see ``repro_torch.core.gson.superstep``).
+Sessions and fleets both run through that driver, so ``fleet_capable =
+True`` marks a strategy that provides them.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass, field
 from typing import Any, Protocol, runtime_checkable
 
-import torch
-
-from repro_torch.core.gson import superstep
 from repro_torch.core.gson.state import GSONParams
 from repro_torch.core.gson.superstep import SuperstepConfig, next_pow2
 from repro_torch.gson.registry import VARIANTS
@@ -54,7 +47,7 @@ class FusedConfig:
 
 @dataclass
 class Runtime:
-    """Resolved per-run context the session hands to its strategy."""
+    """Resolved per-run context: the spec's axes as concrete objects."""
 
     spec: Any                     # the RunSpec
     params: GSONParams
@@ -62,29 +55,6 @@ class Runtime:
     sampler: Any                  # f(gen, n) -> (n, dim) f32
     find_winners: Any             # FindWinnersFn | None
     update_phase: Any = None      # UpdatePhaseFn | None
-    draws: Any = None             # the run's RNG seam
-    probes: torch.Tensor | None = None
-    cfg: SuperstepConfig | None = None   # the loop config, from prepare
-
-    @property
-    def check_every(self) -> int:
-        return self.spec.check_every
-
-    @property
-    def qe_threshold(self) -> float:
-        return self.spec.qe_threshold
-
-
-@dataclass
-class StepResult:
-    """Outcome of one strategy step (1 iteration, or a fused superstep)."""
-
-    state: Any
-    iterations: int               # iterations actually executed
-    checked: bool                 # convergence predicate evaluated?
-    done: bool
-    qe: float
-    seconds: float                # host wall time of the step
 
 
 @runtime_checkable
@@ -92,48 +62,33 @@ class VariantStrategy(Protocol):
     name: str
     config_cls: type
 
-    def prepare(self, rt: Runtime) -> None: ...
 
-    def step(self, rt: Runtime, state, it: int,
-             max_iters: int) -> StepResult: ...
+class _FleetBacked:
+    """Shared base of the registered strategies: both run through the
+    fleet core (``repro_torch.core.gson.fleet``), at B = 1 in a
+    ``Session`` and at B = N in a ``FleetSession``."""
 
-    def convergence(self, rt: Runtime, state) -> tuple[bool, float, Any]: ...
+    fleet_capable = True
+    fleet_mode = "host"
 
-
-def check_convergence(rt: Runtime, state):
-    """The termination predicate on the host: SOAM's criterion on a fresh
-    state ladder, or quantization error against the probe set (GNG,
-    GWR). Returns ``(done, qe, state)``."""
-    state, done, qe = superstep.convergence_check(
-        state, rt.probes, params=rt.params, qe_threshold=rt.qe_threshold)
-    return bool(done), float(qe), state
-
-
-class _LoopBacked:
-    """Shared base: the loop config comes from ``loop_cfg``."""
-
-    def loop_cfg(self, spec, params: GSONParams, vcfg) -> SuperstepConfig:
+    def fleet_cfg(self, spec, params: GSONParams, vcfg) -> SuperstepConfig:
+        """The loop config from the spec-level knobs."""
         raise NotImplementedError
 
-    def prepare(self, rt: Runtime) -> None:
-        rt.cfg = self.loop_cfg(rt.spec, rt.params, rt.vcfg)
 
-    def convergence(self, rt: Runtime, state):
-        return check_convergence(rt, state)
-
-
-class MultiVariant(_LoopBacked):
-    """Host-dispatched multi-signal loop: one iteration per step.
+class MultiVariant(_FleetBacked):
+    """Host-dispatched multi-signal loop: one iteration per tick.
 
     The signal buffer has ``max_parallel`` rows and the device
     m-schedule masks in the first ``m_t = next_pow2(n_active)`` of them —
-    the same iteration the fused loop runs, one at a time.
+    the same iteration the fused loop runs, one at a time, as one
+    ``fleet_iterate`` of a B = 1 fleet.
     """
 
     name = "multi"
     config_cls = MultiConfig
 
-    def loop_cfg(self, spec, params, vcfg) -> SuperstepConfig:
+    def fleet_cfg(self, spec, params, vcfg) -> SuperstepConfig:
         if vcfg.fixed_m is not None:
             buf = min(params.max_parallel, vcfg.fixed_m)
         else:
@@ -144,24 +99,15 @@ class MultiVariant(_LoopBacked):
             check_every=spec.check_every,
             qe_threshold=spec.qe_threshold)
 
-    def step(self, rt: Runtime, state, it: int,
-             max_iters: int) -> StepResult:
-        t0 = time.perf_counter()
-        res = superstep.run_superstep(
-            state, rt.draws, rt.probes, it, params=rt.params, cfg=rt.cfg,
-            max_steps=1, find_winners=rt.find_winners,
-            update_phase=rt.update_phase)
-        return StepResult(res.state, 1, (it + 1) % rt.check_every == 0,
-                          res.converged, res.qe, time.perf_counter() - t0)
 
-
-class FusedVariant(_LoopBacked):
-    """Whole iterate-sample-converge supersteps per step."""
+class FusedVariant(_FleetBacked):
+    """Whole iterate-sample-converge supersteps per tick."""
 
     name = "multi-fused"
+    fleet_mode = "device"
     config_cls = FusedConfig
 
-    def loop_cfg(self, spec, params, vcfg) -> SuperstepConfig:
+    def fleet_cfg(self, spec, params, vcfg) -> SuperstepConfig:
         ss = vcfg.superstep.resolve(spec.capacity, params)
         return dataclasses.replace(
             ss,
@@ -171,22 +117,6 @@ class FusedVariant(_LoopBacked):
             min_m=vcfg.min_m,
             fixed_m=(vcfg.fixed_m if vcfg.fixed_m is not None
                      else ss.fixed_m))
-
-    def step(self, rt: Runtime, state, it: int,
-             max_iters: int) -> StepResult:
-        ss = rt.cfg
-        # bound by BOTH remaining budgets: iterations, and signals (worst
-        # case one iteration consumes max_parallel signals)
-        sig_left = rt.spec.max_signals - int(state.signal_count)
-        length = max(1, min(ss.length, max_iters,
-                            -(-sig_left // ss.max_parallel)))
-        t0 = time.perf_counter()
-        res = superstep.run_superstep(
-            state, rt.draws, rt.probes, it, params=rt.params, cfg=ss,
-            max_steps=length, find_winners=rt.find_winners,
-            update_phase=rt.update_phase)
-        return StepResult(res.state, res.iterations, True, res.converged,
-                          res.qe, time.perf_counter() - t0)
 
 
 # stateless singletons: one instance per registered name

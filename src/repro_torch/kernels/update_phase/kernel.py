@@ -45,8 +45,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.gson.topology import (edge_slots, scatter_add,
-                                              scatter_set)
+from repro_torch.core.gson.batch import add, put, take
+from repro_torch.core.gson.topology import edge_slots
 from repro_torch.kernels import _build
 
 BIG_PRIO = 2 ** 31 - 1
@@ -100,40 +100,27 @@ def update_accum_plain(x, wid, sel, adapt, scale_b, d2b, dec_b, scale_n,
     (float atomics): ulp differences in ``nsc``/``nsx``/``decn_u``. The
     aged table is :func:`edge_age_plain` with the reset of
     ``edge_slots(nbr, wid, sid, adapt)``."""
-    outs = [[] for _ in range(7)]
-    resets = []
-    for b in range(x.shape[0]):
-        for out, v in zip(outs, _accum_one(
-                x[b], wid[b], sel[b], adapt[b], scale_b[b], d2b[b],
-                dec_b[b], scale_n[b], dec_n[b], nbr[b], w[b])):
-            out.append(v)
-        resets.append(edge_slots(nbr[b], wid[b], sid[b], adapt[b]))
-    outs = [torch.stack(o) for o in outs]
-    aged = edge_age_plain(age, nbr, outs[-1] > 0.0, stable,
-                          torch.stack(resets))
-    return (*outs, aged)
-
-
-def _accum_one(x, wid, sel, adapt, scale_b, d2b, dec_b, scale_n, dec_n,
-               nbr, w):
-    C = nbr.shape[0]
-    a_idx = (torch.where(adapt, wid, C).long(),)
-    s_idx = (torch.where(sel, wid, C).long(),)
+    C = nbr.shape[1]
+    a_idx = (torch.where(adapt, wid, C),)
+    s_idx = (torch.where(sel, wid, C),)
     wc = wid.clamp(0, C - 1).long()
-    zeros = torch.zeros_like(w[:, 0])
+    zeros = torch.zeros_like(w[..., 0])
+    w_wc = take(w, wc)
 
-    w1 = scatter_set(w, a_idx, w[wc] + scale_b[:, None] * (x - w[wc]))
-    err = scatter_set(zeros, s_idx, d2b)
-    wind = scatter_set(zeros, s_idx, 1.0)
-    decb_u = scatter_set(zeros, a_idx, dec_b)
+    w1 = put(w, a_idx, w_wc + scale_b[..., None] * (x - w_wc))
+    err = put(zeros, s_idx, d2b)
+    wind = put(zeros, s_idx, 1.0)
+    decb_u = put(zeros, a_idx, dec_b)
 
-    nb = nbr[wc]                                               # (M, K)
-    tgt = (torch.where((nb >= 0) & adapt[:, None], nb, C).long(),)
-    nsc = scatter_add(zeros, tgt, scale_n)
-    decn_u = scatter_add(zeros, tgt, dec_n)
-    nsx = scatter_add(torch.zeros_like(w), tgt,
-                      scale_n[:, :, None] * x[:, None, :])
-    return w1, nsc, nsx, err, decb_u, decn_u, wind
+    nb = take(nbr, wc)                                         # (B, M, K)
+    tgt = (torch.where((nb >= 0) & adapt[..., None], nb, C),)
+    nsc = add(zeros, tgt, scale_n)
+    decn_u = add(zeros, tgt, dec_n)
+    nsx = add(torch.zeros_like(w), tgt,
+              scale_n[..., None] * x[..., None, :])
+    aged = edge_age_plain(age, nbr, wind > 0.0, stable,
+                          edge_slots(nbr, wid, sid, adapt))
+    return w1, nsc, nsx, err, decb_u, decn_u, wind, aged
 
 
 def edge_age_plain(age, nbr, win, stable, reset):

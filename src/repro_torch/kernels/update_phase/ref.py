@@ -103,14 +103,7 @@ def update_phase_dense(
     keep = stable_u[:, None] & stable_u[safe]
     inc = ((win_ind[:, None].to(f32) + winat.to(f32)) * valid.to(f32)
            * (1.0 - keep.to(f32)))
-    rows = torch.cat([wid, sid])
-    vals = torch.cat([sid, wid])
-    m2 = torch.cat([adapt, adapt])
-    slots = topo.find_slots(nbr, torch.where(m2, rows, -1), vals)
-    ok = m2 & (slots >= 0)
-    reset = topo.scatter_set(
-        torch.zeros_like(valid),
-        (torch.where(ok, rows, C).long(), slots.clamp(min=0).long()), True)
+    reset = topo.edge_slots(nbr, wid, sid, adapt)
     age = torch.where(reset, 0.0, state.age + inc)
 
     return UpdateOut(selected=selected, adapt=adapt, ins=ins,

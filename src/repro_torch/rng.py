@@ -14,6 +14,12 @@ a lock key split off the state's key at every step) lives behind this
 interface. ``TorchDraws`` is the default, drawing on the run's device.
 A test can hand a session any object with these four methods — for
 example one that replays the JAX package's draws — and get the same run.
+
+Two more methods make a run restartable: ``state_dict()`` returns the
+seam's position as a dict of tensors (or numpy arrays), and
+``load_state_dict(d)`` puts it back, so a restored session draws the rows
+the original would have drawn next. A fleet gives each network a seam of
+its own.
 """
 from __future__ import annotations
 
@@ -31,6 +37,13 @@ class Draws(Protocol):
     def signals(self, n: int) -> torch.Tensor: ...
 
     def lock_priorities(self, m: int) -> torch.Tensor: ...
+
+    def state_dict(self) -> dict: ...
+
+    def load_state_dict(self, d: dict) -> None: ...
+
+
+_STREAMS = ("signals", "probes", "seed_points", "lock")
 
 
 class TorchDraws:
@@ -59,3 +72,16 @@ class TorchDraws:
     def lock_priorities(self, m: int) -> torch.Tensor:
         return torch.randperm(m, generator=self._lock, device=self.device,
                               dtype=torch.int32)
+
+    def _generators(self):
+        return dict(zip(_STREAMS, (self._sig, self._probe, self._seed,
+                                   self._lock)))
+
+    def state_dict(self) -> dict:
+        """Each generator's state (``get_state()``: a CPU byte tensor, for
+        a CUDA generator too)."""
+        return {k: g.get_state() for k, g in self._generators().items()}
+
+    def load_state_dict(self, d: dict) -> None:
+        for k, g in self._generators().items():
+            g.set_state(d[k].to("cpu", torch.uint8))

@@ -74,6 +74,18 @@ class JaxReplayDraws:
         self._lock_key, k = jax.random.split(self._lock_key)
         return t(self._perm(k, m), torch.int32)
 
+    _KEYS = ("_sig_key", "_probe_key", "_seed_key", "_lock_key")
+
+    def state_dict(self) -> dict:
+        """The four keys' data, as numpy uint32 arrays."""
+        return {k: np.asarray(jax.random.key_data(getattr(self, k)))
+                for k in self._KEYS}
+
+    def load_state_dict(self, d: dict) -> None:
+        for k in self._KEYS:
+            setattr(self, k, jax.random.wrap_key_data(
+                jnp.asarray(d[k], jnp.uint32)))
+
 
 def lock_priorities(k_lock, m: int) -> torch.Tensor:
     """The JAX lock priorities of one step, for the port."""

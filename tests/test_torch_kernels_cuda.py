@@ -357,15 +357,17 @@ def _stale_owner(rng, net, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("kind", ["unselected", "other_winner", "negative",
                                   "too_large", "mixed"])
-def test_update_accum_ignores_stale_owner_scratch(cuda_device, kind):
+def test_update_accum_ignores_stale_owner_scratch(cuda_device, kind, B):
     """The owner scratch is not cleared: whatever it holds, the outputs,
     the aged table among them, are those of a call on a scratch set to
-    -1."""
-    _, args, nets = _accum_fleet(cuda_device, 11, 2, 4096, 16, 8192, 3)
+    -1 — for one network and for a fleet, whose networks each leave
+    their own stale ids."""
+    _, args, nets = _accum_fleet(cuda_device, 11, B, 4096, 16, 8192, 3)
     rng = np.random.default_rng(12)
-    clean = _launch_accum(args, torch.full((2, 4096), -1, dtype=torch.int32,
+    clean = _launch_accum(args, torch.full((B, 4096), -1, dtype=torch.int32,
                                            device=cuda_device))
     stale = torch.from_numpy(np.stack(
         [_stale_owner(rng, n, kind) for n in nets])).to(cuda_device)
@@ -488,6 +490,89 @@ def test_winner_lock_across_tiles(cuda_device, C, M, B, m_t):
     best = winner_lock_min(wid, prio, C)
     assert torch.equal(best, winner_lock_min(wid, prio, C))
     assert torch.equal(best, winner_lock_min_plain(wid, prio, C))
+
+
+@pytest.mark.cuda
+def test_each_wrapper_at_b8_matches_its_plain_version(cuda_device):
+    """The fleet's shape: eight networks in one launch of each wrapper,
+    at the main path's widths, each held against its plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    B, M, C, D = 8, 8192, 4096, 3
+    sig = torch.randn((B, M, D), generator=g, device=cuda_device)
+    w = torch.randn((B, C, D), generator=g, device=cuda_device)
+    act = torch.rand((B, C), generator=g, device=cuda_device) < 0.1
+    act[:, :2] = True
+    before = [f.launches for f in (find_winners_top2, winner_lock_min,
+                                   update_accum)]
+    d2k, idk = find_winners_top2(sig, w, act)
+    d2p, idp = find_winners_top2_plain(sig, w, act)
+    torch.testing.assert_close(d2k, d2p, **D_TOL)
+    for b in range(B):
+        ok = near_tie_free(sig[b], w[b], act[b])
+        assert ok.float().mean() > 0.9
+        assert torch.equal(idk[b][ok], idp[b][ok])
+    largs, args, _ = _accum_fleet(cuda_device, 8, B, C, 16, M, D, m_t=512)
+    best = winner_lock_min(*largs)
+    assert torch.equal(best, winner_lock_min_plain(*largs))
+    got = update_accum(*args)
+    _check_accum(got, update_accum_plain(*args))
+    after = [f.launches for f in (find_winners_top2, winner_lock_min,
+                                  update_accum)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+_STATE_FIELDS = ("w", "active", "nbr", "age", "error", "firing",
+                 "threshold", "topo_state", "inconsistent_for", "n_active",
+                 "signal_count", "discarded")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["multi", "multi-fused"])
+def test_fleet_on_card_equals_sessions(cuda_device, variant):
+    """A B = 4 FleetSession on the card: one launch of each wrapper per
+    fleet iteration, and every network equals its own Session (state
+    fields bitwise, rows equal with qe within 1e-6)."""
+    spec = gson.RunSpec(variant=variant, capacity=512, max_iterations=40,
+                        check_every=10)
+    fleet = gson.FleetSession(gson.FleetSpec.broadcast(spec, seeds=range(4)))
+    fleet.run(budget=0)
+    before = [f.launches for f in (find_winners_top2, winner_lock_min,
+                                   update_accum)]
+    fleet.run()
+    after = [f.launches for f in (find_winners_top2, winner_lock_min,
+                                  update_accum)]
+    assert [a - b for a, b in zip(after, before)] == [40, 40, 40]
+    for i in range(4):
+        sess = gson.Session(spec, seed=i)
+        sess.run()
+        st, stats = fleet.result(i)
+        assert st.w.is_cuda
+        for name in _STATE_FIELDS:
+            assert torch.equal(getattr(st, name),
+                               getattr(sess.state, name)), (i, name)
+        for row, srow in zip(stats.history, sess.stats.history, strict=True):
+            assert (row["iteration"], row["units"], row["signals"]) == (
+                srow["iteration"], srow["units"], srow["signals"])
+            assert row["qe"] == pytest.approx(srow["qe"], rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_session_checkpoint_restores_onto_the_card(cuda_device, tmp_path):
+    spec = gson.RunSpec(variant="multi", capacity=512, max_iterations=40,
+                        check_every=10)
+    full = gson.Session(spec, seed=1)
+    full.run()
+    cut = gson.Session(spec, seed=1, checkpoint_dir=str(tmp_path))
+    cut.run(budget=17)
+    cut.checkpoint()
+    del cut
+    back = gson.Session.restore(spec, str(tmp_path))
+    assert back.state.w.is_cuda and back.probes.is_cuda
+    back.run()
+    assert back.stats.history == full.stats.history
+    for name in _STATE_FIELDS:
+        assert torch.equal(getattr(back.state, name),
+                           getattr(full.state, name)), name
 
 
 # ---------------------------------------------------------------------------
