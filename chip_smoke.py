@@ -51,13 +51,38 @@ Phases, each of which fails the run (nonzero exit, no result line):
    is dropped, is restored and runs as many again: its rows and state
    equal an uninterrupted run's; the same for a ``FleetSession`` at
    B = 4; for ``multi`` and ``multi-fused``.
-8. profile — where the main path's time goes (``torch.profiler``):
+8. slab kernels — B2 and the fused B3 + B4 as the winner-neighborhood
+   slab (``update_phase_sparse``) hands them their inputs, at the autotune
+   cells (256, 4096, 512) and (384, 8192, 768) on a grown pool, against
+   their plain versions with phase 3's tolerances; the slab's whole result
+   equals ``update_phase_op``'s bitwise; each kernel's time at slab
+   capacity beside its time on the whole pool at the same m, device
+   launches per call, and both phases end to end (host clock).
+9. ``cuda-sparse`` — ``RunSpec(backend="cuda-sparse",
+   variant_config=MultiConfig(fixed_m=512))`` for ``SPARSE_ITERS``
+   iterations against the same spec on ``cuda-update``: rows and state
+   equal, the slab taken on more than half of the iterations; branch
+   counts, launches and it/s of both.
+10. ``cuda-auto`` — at every cell of the committed selection table
+   (``src/repro_torch/gson/autotune_table.json``) the autotuned Update
+   phase dispatches to the cell's best (the kernel counters move exactly
+   when that is ``cuda`` or ``sparse``); two cells timed again live beside
+   their committed figures.
+11. ``single`` — the paper's sequential baseline,
+   ``RunSpec(variant="single", backend="cuda-full")``, for
+   ``SINGLE_CHUNKS`` chunks of 256 signals: B1 launches exactly once per
+   signal, and the rows equal the ``reference`` backend's (a row that
+   differs is traced to the first signal whose winners differ, which must
+   be a near-tie: distances within 1e-4). Signals/s beside ``multi``'s.
+12. profile — where the main path's time goes (``torch.profiler``):
    device busy share and top kernels at B = 1, then device ops and
    device time per iteration and the busy share of the fleet at B = 8,
    whose window must show one launch of each of the port's device
    kernels per fleet iteration (a profiler that records nothing prints
    "not measured" instead).
-9. report — the ``kernels`` JSON line, the card's line, and last
+13. report — the ``kernels`` JSON line (each kernel's launches on the main
+   path, and under ``paths`` on every path driven with the counters set
+   to 0 before and read after), the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs ``src/repro_torch`` beside it and a CUDA device; without
@@ -66,6 +91,8 @@ either it exits nonzero before printing any result. Long output goes to
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -87,6 +114,9 @@ FLEET_B, FLEET_ITERS = 8, 128     # the fleet phase
 # the checkpoint phase cuts at CKPT_ITERS, a multiple of the fused
 # superstep (64), so multi-fused emits the rows of an uninterrupted run
 CKPT_B, CKPT_ITERS = 4, 64
+SLAB_CELLS = ((256, 4096, 512), (384, 8192, 768))   # (units, capacity, m)
+SPARSE_ITERS = 128     # the cuda-sparse session (fixed_m = 512)
+SINGLE_CHUNKS = 8      # chunks of 256 signals of the single session
 STATE_FIELDS = ("w", "active", "nbr", "age", "error", "firing",
                 "threshold", "topo_state", "inconsistent_for", "n_active",
                 "signal_count", "discarded")
@@ -216,6 +246,7 @@ def phase_build():
                     log(f"  ptxas {name}: {line.strip()}")
 
 
+@functools.lru_cache(maxsize=None)
 def grown_pool(seed: int):
     """A pool at the default geometry grown by a short plain run."""
     from repro_torch import gson
@@ -395,6 +426,20 @@ def counters():
     return {**wrappers, **{k: wrappers[v] for k, v in SHARED.items()}}
 
 
+def zero_counters():
+    for f in counters().values():
+        f.launches = 0
+
+
+def read_counters(path: str, must: tuple) -> dict:
+    """The launch counters after a path; each kernel in ``must`` has to
+    have launched."""
+    got = {name: f.launches for name, f in counters().items()}
+    for name in must:
+        assert got[name] > 0, f"kernel {name} was not launched on the {path}"
+    return got
+
+
 def check_state(st):
     import numpy as np
     import torch
@@ -466,6 +511,7 @@ def phase_main_path():
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched on the main path"
 
+    multi_rate = runs["multi"][2].signals / runs["multi"][3]
     for variant, (sess, st, stats, wall, chi) in runs.items():
         check_state(st)
         log(f"main path {variant}: {stats.iterations} it in {wall:.3f} s "
@@ -507,7 +553,7 @@ def phase_main_path():
         f"(JAX reference on CPU: chi {GATE['jax_chi']}, units "
         f"{GATE['jax_units']}, QE {GATE['jax_qe']}; other draws, so not "
         f"asserted)")
-    return launches
+    return launches, multi_rate
 
 
 def grown_fleet(seeds):
@@ -753,6 +799,322 @@ def phase_checkpoint():
     shutil.rmtree(root, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def recorded(module, *names):
+    """``module.<name>`` replaced, for the block, by a function that
+    records its arguments and calls the original."""
+    calls = {n: [] for n in names}
+    orig = {n: getattr(module, n) for n in names}
+
+    def recorder(n):
+        def call(*a):
+            calls[n].append(a)
+            return orig[n](*a)
+        return call
+    for n in names:
+        setattr(module, n, recorder(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(module, n, orig[n])
+
+
+def padded_pool(state, capacity: int):
+    """``state`` in a pool of ``capacity`` rows: the extra rows free."""
+    import torch
+    from repro_torch.core.gson.state import NetworkState
+    C = state.capacity
+    fill = {"w": 0.0, "active": False, "nbr": -1, "age": 0.0, "error": 0.0,
+            "firing": 1.0, "topo_state": 0, "inconsistent_for": 0,
+            "threshold": float(state.threshold[0])}
+    out = {}
+    for name in STATE_FIELDS + ("dropped_edges", "dropped_units"):
+        a = getattr(state, name)
+        if name in fill:
+            a = torch.cat([a, a.new_full((capacity - C, *a.shape[1:]),
+                                         fill[name])])
+        out[name] = a
+    return NetworkState(**out)
+
+
+ACCUM_OUT = ("w1", "nsc", "nsx", "err", "decb_u", "decn_u", "wind", "age")
+ACCUM_EXACT = ("w1", "err", "decb_u", "wind", "age")
+
+
+def check_update_kernels(calls, ctx: str) -> float:
+    """Every recorded call of B2 and of the fused B3 + B4 against its
+    plain version on the same arguments, with phase 3's tolerances (the
+    lock, the winner fields and the aged table bitwise; the sums within
+    rtol=1e-6, atol=1e-7). Returns the largest error of the sums."""
+    import torch
+    from repro_torch.kernels.update_phase import kernel as upk
+    assert calls["winner_lock_min"] and calls["update_accum"], \
+        f"{ctx}: the Update-phase kernels were not called"
+    for largs in calls["winner_lock_min"]:
+        assert torch.equal(upk.winner_lock_min(*largs),
+                           upk.winner_lock_min_plain(*largs)), \
+            f"{ctx}: winner_lock differs"
+    err = 0.0
+    for aargs in calls["update_accum"]:
+        for name, k, p in zip(ACCUM_OUT, upk.update_accum(*aargs),
+                              upk.update_accum_plain(*aargs)):
+            if name in ACCUM_EXACT:
+                assert torch.equal(k, p), f"{ctx}: update_accum {name} differs"
+            torch.testing.assert_close(k, p, rtol=1e-6, atol=1e-7)
+            err = max(err, float((k - p).abs().max()))
+    return err
+
+
+def phase_slab_kernels():
+    """B2 and B3 + B4 on the gathered slab against their plain versions,
+    at slab capacity beside the whole pool at the same m."""
+    import torch
+    from repro_torch.core.gson.multi import find_winners_reference
+    from repro_torch.core.gson.sampling import make_sampler
+    from repro_torch.gson.autotune import wall_timer
+    from repro_torch.kernels.update_phase import kernel as upk
+    from repro_torch.kernels.update_phase import ops
+    from repro_torch.kernels.update_phase import sparse
+
+    dev = torch.device("cuda")
+    pool, params = grown_pool(SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    host = wall_timer(n=20, warmup=3)
+    out = {}
+    for units, C, m in SLAB_CELLS:
+        state = pool if C == pool.capacity else padded_pool(pool, C)
+        sig = make_sampler("sphere")(g, m)
+        wid, sid, d2b, _ = find_winners_reference(sig, state.w, state.active)
+        prio = torch.randperm(m, generator=g, device=dev, dtype=torch.int32)
+        args = (state, sig, wid, sid, d2b, prio, params)
+        slab0 = sparse.update_phase_sparse.slab_calls
+        with recorded(sparse, "winner_lock_min", "update_accum") as at_slab:
+            got = sparse.update_phase_sparse(*args)
+        assert sparse.update_phase_sparse.slab_calls == slab0 + 1, \
+            f"({units}, {C}, {m}): the slab was not taken"
+        with recorded(ops, "winner_lock_min", "update_accum") as at_pool:
+            want = ops.update_phase_op(*args)
+        for name, a, b in zip(got._fields, got, want):
+            assert torch.equal(a, b), \
+                f"({units}, {C}, {m}): slab {name} differs from update_phase_op"
+        largs = at_slab["winner_lock_min"][0]
+        aargs = at_slab["update_accum"][0]
+        Gs = largs[2]
+        err = check_update_kernels(at_slab, f"slab ({units}, {C}, {m})")
+        log(f"slab ({units}, {C}, {m}): {int(state.n_active)} active units, "
+            f"slab of {Gs} rows of {C}; B2 bitwise, B3 + B4 winner fields "
+            f"and aged table bitwise, sums within {err:.3g}; the slab's "
+            f"result equals update_phase_op's bitwise")
+        row = {}
+        for name, slab_a, pool_a in (
+                ("winner_lock", largs, at_pool["winner_lock_min"][0]),
+                ("update_accum", aargs, at_pool["update_accum"][0])):
+            fn = getattr(upk, "winner_lock_min" if name == "winner_lock"
+                         else "update_accum")
+            ms_s = device_ms(lambda f=fn, a=slab_a: f(*a), 50)
+            ms_p = device_ms(lambda f=fn, a=pool_a: f(*a), 50)
+            launched = device_launches(lambda f=fn, a=slab_a: f(*a))
+            per = (f"{len(launched)} device launch(es) per call" if launched
+                   else "device launches per call not measured")
+            row[name] = (ms_s, ms_p)
+            log(f"  {name:13s} at slab capacity {Gs}: {ms_s:.4f} ms, on the "
+                f"whole pool {C}: {ms_p:.4f} ms; {per}")
+        t_s = host("sparse", lambda: sparse.update_phase_sparse(*args))
+        t_p = host("cuda", lambda: ops.update_phase_op(*args))
+        n_s = len(device_launches(lambda: sparse.update_phase_sparse(*args)))
+        n_p = len(device_launches(lambda: ops.update_phase_op(*args)))
+        log(f"  the whole Update phase (host clock, synchronised): slab "
+            f"{t_s * 1e3:.4f} ms, dense {t_p * 1e3:.4f} ms; device ops per "
+            f"call: slab {n_s or 'not measured'}, dense "
+            f"{n_p or 'not measured'}")
+        out[(units, C, m)] = row
+    return out
+
+
+def phase_sparse_session():
+    """``cuda-sparse`` at fixed_m = 512 against ``cuda-update``."""
+    from repro_torch import gson
+    from repro_torch.kernels.update_phase.sparse import update_phase_sparse
+    base = gson.RunSpec(backend="cuda-update", max_iterations=SPARSE_ITERS,
+                        variant_config=gson.MultiConfig(fixed_m=512))
+    runs = {}
+    for be in ("cuda-update", "cuda-sparse"):
+        zero_counters()
+        for k in ("slab_calls", "dense_calls", "pool_calls"):
+            setattr(update_phase_sparse, k, 0)
+        runs[be] = run_session(base.replace(backend=be), SEED, None)
+        launches = read_counters(f"{be} path", ("winner_lock", "update_accum"))
+    branches = {k: getattr(update_phase_sparse, k)
+                for k in ("slab_calls", "dense_calls", "pool_calls")}
+    (s_sess, s_st, s_stats, s_wall, _), (d_sess, d_st, d_stats, d_wall, _) = (
+        runs["cuda-sparse"], runs["cuda-update"])
+    assert s_stats.iterations == d_stats.iterations == SPARSE_ITERS
+    assert_same_network(s_st, d_st, s_stats.history, d_stats.history,
+                        "cuda-sparse vs cuda-update")
+    assert branches["slab_calls"] > SPARSE_ITERS // 2, branches
+    assert sum(branches.values()) == SPARSE_ITERS, branches
+    r_s, r_d = SPARSE_ITERS / s_wall, SPARSE_ITERS / d_wall
+    log(f"cuda-sparse (fixed_m=512, capacity 4096, {SPARSE_ITERS} it, units "
+        f"{s_stats.units}): branches {branches}, launches "
+        f"{ {k: launches[k] for k in ('winner_lock', 'update_accum')} }; rows "
+        f"and state equal to cuda-update's ({len(s_stats.history)} rows); "
+        f"{r_s:.1f} it/s vs cuda-update {r_d:.1f} it/s (x{r_s / r_d:.2f})")
+    return launches
+
+
+def phase_auto():
+    """The autotuned Update phase dispatches to each committed cell's
+    best, whose kernels hold against their plain versions at the cell's
+    shapes; "last" raises on the card; two cells timed again live."""
+    import dataclasses
+
+    from repro_torch import gson
+    from repro_torch.gson import autotune
+    from repro_torch.kernels.update_phase import ops, sparse
+    from repro_torch.kernels.update_phase.sparse import update_phase_sparse
+    table = autotune.load_table(autotune.PACKAGED_TABLE)
+    log(f"cuda-auto: committed table measured on {table.meta.get('nvidia_smi')}"
+        f" (torch {table.meta.get('torch_version')}, CUDA "
+        f"{table.meta.get('cuda_version')})")
+    up = gson.resolve_backend("cuda-auto").update_phase
+    launched = {}
+    for cell in table.cells:
+        u, C, m = cell.units, cell.capacity, cell.m
+        assert up.select(C, m) == cell.best == min(
+            set(cell.t_us) & set(autotune.CANDIDATES),
+            key=lambda k: (cell.t_us[k], k)), cell
+        inputs = autotune._cell_inputs(u, C, m, device="cuda")
+        zero_counters()
+        branch0 = (update_phase_sparse.slab_calls,
+                   update_phase_sparse.dense_calls,
+                   update_phase_sparse.pool_calls)
+        with recorded(ops, "winner_lock_min", "update_accum") as at_pool, \
+                recorded(sparse, "winner_lock_min", "update_accum") as at_slab:
+            up(*inputs)
+        n = counters()
+        moved = n["winner_lock"].launches + n["update_accum"].launches
+        for name in ("winner_lock", "update_accum"):
+            launched[name] = launched.get(name, 0) + n[name].launches
+        assert moved > 0, (cell, moved)
+        branch = [k for k, a, b in zip(("slab", "dense", "pool"), (
+            update_phase_sparse.slab_calls, update_phase_sparse.dense_calls,
+            update_phase_sparse.pool_calls), branch0) if a != b]
+        assert bool(branch) == (cell.best == "sparse"), (cell, branch)
+        calls = {k: at_pool[k] + at_slab[k] for k in at_pool}
+        err = check_update_kernels(calls, f"cuda-auto ({u}, {C}, {m})")
+        times = "  ".join(f"{k} {v:.1f}" for k, v in sorted(cell.t_us.items()))
+        log(f"  ({u}, {C}, {m}) -> {cell.best}"
+            f"{' (' + branch[0] + ')' if branch else ''}: kernel launches "
+            f"{moved}, B2 and B3 + B4 equal to their plain versions at "
+            f"capacity {calls['winner_lock_min'][0][2]} (sums within "
+            f"{err:.3g}); committed us: {times}")
+    inputs = list(autotune._cell_inputs(32, 768, 64, device="cuda"))
+    inputs[-1] = dataclasses.replace(inputs[-1], neighbor_collision="last")
+    try:
+        up(*inputs)
+    except NotImplementedError:
+        log('  neighbor_collision="last" raises on the card, as on the '
+            'kernel backends')
+    else:
+        raise AssertionError('cuda-auto ran neighbor_collision="last" on '
+                             'the card')
+    for u, C, m in ((256, 4096, 512), (1024, 2048, 2048)):
+        live = autotune.measure_cell(u, C, m, device="cuda")
+        cell = next(c for c in table.cells
+                    if (c.units, c.capacity, c.m) == (u, C, m))
+        log(f"  live ({u}, {C}, {m}): best {live.best}, " + "  ".join(
+            f"{k} {live.t_us[k]:.1f} us (committed {cell.t_us[k]:.1f})"
+            for k in sorted(live.t_us)))
+    return {**launched, "edge_age": launched["update_accum"]}
+
+
+def phase_single(multi_signals_per_s: float):
+    """The sequential baseline on the card: one B1 launch per signal, rows
+    equal to the reference backend's; B1 held against its plain version
+    at every signal of the reference trajectory."""
+    import torch
+    from repro_torch import gson
+    from repro_torch.core.gson.multi import find_winners_reference
+    from repro_torch.kernels.find_winners import kernel as fwk
+    from repro_torch.kernels.find_winners.ops import cuda_find_winners
+    n_sig = SINGLE_CHUNKS * gson.SingleConfig().chunk
+    spec = gson.RunSpec(variant="single", backend="cuda-full",
+                        max_iterations=SINGLE_CHUNKS, check_every=2)
+    zero_counters()
+    sess, st, stats, wall, chi = run_session(spec, SEED, None)
+    launches = read_counters("single path", ("find_winners",))
+    assert launches["find_winners"] == n_sig, launches
+    assert stats.signals == n_sig, stats.signals
+    check_state(st)
+    ref = run_session(spec.replace(backend="reference"), SEED, None)
+    rows, rrows = stats.history, ref[2].history
+    assert len(rows) == len(rrows) == SINGLE_CHUNKS // 2
+
+    def first_difference(rows, rrows):
+        return next((i for i, (a, b) in enumerate(zip(rows, rrows))
+                     if (a["units"], a["signals"]) != (b["units"],
+                                                        b["signals"])
+                     or not math.isclose(a["qe"], b["qe"], rel_tol=1e-4)),
+                    None)
+    first = first_difference(rows, rrows)
+    # follow the reference trajectory and, at every signal, hold B1
+    # against its plain version (phase 3's tolerances: ids on tie-free
+    # signals, distances everywhere) and note the first signal at which
+    # the kernel path's winners differ from the reference backend's
+    flip = {}
+    held = Counter()
+
+    def probe(x, w, active):
+        r = find_winners_reference(x, w, active)
+        args = (x.float().contiguous(), w.float().contiguous(),
+                active.contiguous())
+        d2k, idk = fwk.find_winners_top2(*args)
+        d2p, idp = fwk.find_winners_top2_plain(*args)
+        ok = near_tie_free(x[0], w[0], active[0])
+        assert torch.equal(idk[0][ok], idp[0][ok]), \
+            f"find_winners ids differ at signal {held['signals']}"
+        torch.testing.assert_close(d2k, d2p, rtol=2e-4, atol=1e-5)
+        held.update(signals=1, tie_free=int(ok.sum()))
+        held["err"] = max(held["err"], float((d2k - d2p).abs().max()))
+        if not flip:
+            k = cuda_find_winners(x, w, active)
+            if not (torch.equal(k[0], r[0]) and torch.equal(k[1], r[1])):
+                d = ((x[0, 0] - w[0]) ** 2).sum(-1).double()
+                d = torch.where(active[0], d, math.inf)
+                top = torch.topk(d, 3, largest=False)
+                flip.update(signal=held["signals"] - 1, kernel=(
+                    int(k[0]), int(k[1])), plain=(int(r[0]), int(r[1])),
+                    d2=top.values.tolist(), ids=top.indices.tolist())
+        return r
+    _, probe_stats = gson.run(
+        spec.replace(backend=gson.Backend("probe", probe)), seed=SEED)
+    assert held["signals"] == n_sig, held
+    b1 = (f"B1 equal to its plain version at all {n_sig} signals of the "
+          f"reference trajectory (ids on the {held['tie_free']} tie-free, "
+          f"distances within {held['err']:.3g})")
+    if first is None:
+        verdict = f"rows equal to the reference backend's ({len(rows)} rows)"
+    else:
+        assert first_difference(probe_stats.history, rrows) is None, \
+            "the probe left the reference path"
+        assert flip, "rows differ but B1 agrees with the plain search"
+        gap = min(b - a for a, b in zip(flip["d2"], flip["d2"][1:]))
+        verdict = (f"row {first} differs from the reference backend's "
+                   f"({rows[first]} vs {rrows[first]}); first B1 difference "
+                   f"at signal {flip['signal']}: {flip}, nearest gap {gap:.3g}")
+        assert gap <= 1e-4, "B1 flipped a winner that is not a near-tie"
+    rate = n_sig / wall
+    log(f"single (capacity 4096, {SINGLE_CHUNKS} chunks = {n_sig} signals, "
+        f"units {stats.units}, chi {chi}): find_winners launched "
+        f"{launches['find_winners']} times, once per signal; {verdict}; "
+        f"{b1}; "
+        f"{rate:.1f} signals/s (reference backend {n_sig / ref[3]:.1f}) "
+        f"vs multi {multi_signals_per_s:.1f} signals/s on the main path "
+        f"(x{multi_signals_per_s / rate:.0f})")
+    return launches
+
+
 def profile_window(run):
     """``torch.profiler`` around ``run()``: (wall s, device busy s, device
     ops, {kernel name: (launches, us)}, profiler)."""
@@ -870,11 +1232,18 @@ def main() -> int:
         phase_environment()
         phase_build()
         results = phase_kernels()
-        launches = phase_main_path()
+        launches, multi_rate = phase_main_path()
         phase_paired_timing()
         phase_fleet_kernels()
-        phase_fleet()
+        fleet = phase_fleet()
         phase_checkpoint()
+        phase_slab_kernels()
+        paths = {"main": launches,
+                 "fleet": {k: sum(f[2][SHARED.get(k, k)]
+                                  for f in fleet.values()) for k in launches},
+                 "sparse": phase_sparse_session(),
+                 "auto": phase_auto(),
+                 "single": phase_single(multi_rate)}
         phase_profile()
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
@@ -897,6 +1266,7 @@ def main() -> int:
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"], "bound_by": r["by"],
         "library_ms": r["library_ms"],
+        "paths": {path: n.get(name, 0) for path, n in paths.items()},
     } for name, r in results.items()]
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(nvidia_smi_line())

@@ -12,6 +12,9 @@ equals a ``Session(spec_i, seed=seed_i)`` by construction.
     from each network's own ``Draws`` in the order a session draws them.
   * :func:`fleet_iterate` — ONE masked multi-signal iteration for every
     network in ``mask``; the SOAM refresh on each network's own cadence.
+  * :func:`fleet_scan` — one chunk of the sequential baseline
+    (``single``) for every network in ``mask``: the step at m = 1, signal
+    by signal.
   * :func:`fleet_check` — the convergence predicate for masked networks;
     the host reads the whole batch's flags and QEs in one sync.
   * :func:`run_fleet_superstep` — the fused loop over a batch: up to
@@ -45,6 +48,7 @@ from repro_torch.core.gson.batch import stack, take
 from repro_torch.core.gson.multi import (FindWinnersFn, UpdatePhaseFn,
                                          multi_signal_step,
                                          refresh_topology, soam_converged)
+from repro_torch.core.gson.single import single_signal_scan
 from repro_torch.core.gson.state import (FIELDS, NO_NBR, GSONParams,
                                          NetworkState, init_fleet)
 from repro_torch.core.gson.superstep import (SuperstepConfig,
@@ -201,6 +205,37 @@ def fleet_iterate(
         due = mask & (fstate.iteration % cfg.refresh_every == 0)
         if due.any():
             nets = _select_nets(due, refresh_topology(nets, params), nets)
+    new = fstate.replace(nets=nets, iteration=fstate.iteration + 1)
+    return select_fleet(mask, new, fstate)
+
+
+def fleet_scan(
+    fstate: FleetState,
+    mask: np.ndarray,
+    draws: list,
+    *,
+    params: GSONParams,
+    cfg: SuperstepConfig,
+    find_winners: FindWinnersFn | None = None,
+) -> FleetState:
+    """One chunk of the sequential baseline for every network in ``mask``.
+
+    Each running network draws ``cfg.max_parallel`` signals (the chunk)
+    from its own ``Draws`` and takes them one at a time
+    (``single.single_signal_scan``, SOAM refreshing every
+    ``cfg.refresh_every`` signals of the chunk); the Update phase is the
+    reference's. Its iteration counter counts chunks. Networks outside
+    ``mask`` draw nothing and are frozen.
+    """
+    nets = fstate.nets
+    dev = nets.device
+    n = cfg.max_parallel
+    idle = torch.zeros((n, nets.dim), device=dev)
+    sig = stack([d.signals(n).to(dev) if run else idle
+                 for d, run in zip(draws, mask)])
+    nets = single_signal_scan(nets, sig, params,
+                              refresh_every=cfg.refresh_every,
+                              find_winners=find_winners)
     new = fstate.replace(nets=nets, iteration=fstate.iteration + 1)
     return select_fleet(mask, new, fstate)
 

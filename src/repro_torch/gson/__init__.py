@@ -25,10 +25,14 @@ resumable session, or as a fleet of B networks stepped together.
 Runs go on the card unless ``RunSpec(device="cpu")``; on a CPU tensor
 every kernel wrapper runs its plain PyTorch version.
 
-Registries: ``VARIANTS`` (multi / multi-fused), ``MODELS`` (gng / gwr /
-soam), ``SAMPLERS`` (the benchmark surfaces), ``BACKENDS`` (reference /
-cuda / cuda-update / cuda-full: per-phase Hopper kernels for Find
-Winners and the dense Update phase).
+Registries: ``VARIANTS`` (single / multi / multi-fused; ``single`` is the
+paper's sequential baseline and runs as a ``Session`` only), ``MODELS``
+(gng / gwr / soam), ``SAMPLERS`` (the benchmark surfaces), ``BACKENDS``
+(reference / cuda / cuda-update / cuda-full: per-phase Hopper kernels
+for Find Winners and the dense Update phase; cuda-sparse: the Update
+kernels on the winner-neighborhood slab; cuda-auto: per shape the
+fastest Update phase of the selection table measured on the card,
+``repro_torch.gson.autotune``).
 """
 from repro_torch.core.gson.state import GSONParams, NetworkState
 from repro_torch.core.gson.superstep import SuperstepConfig
@@ -40,14 +44,14 @@ from repro_torch.gson.registry import (BACKENDS, MODELS, SAMPLERS, VARIANTS,
 from repro_torch.gson.session import RunStats, Session, run
 from repro_torch.gson.spec import RunSpec, resolve, resolve_variant
 from repro_torch.gson.variants import (FusedConfig, MultiConfig, Runtime,
-                                       VariantStrategy)
+                                       SingleConfig, VariantStrategy)
 from repro_torch.rng import TorchDraws
 
 __all__ = [
     "BACKENDS", "MODELS", "SAMPLERS", "VARIANTS",
     "Backend", "FleetSession", "FleetSpec", "FusedConfig", "GSONParams",
     "ModelDef", "MultiConfig", "NetworkState", "Registry", "RunSpec",
-    "RunStats", "Runtime", "Session", "SuperstepConfig",
+    "RunStats", "Runtime", "Session", "SingleConfig", "SuperstepConfig",
     "TorchDraws", "VariantStrategy", "resolve",
     "resolve_backend", "resolve_model", "resolve_sampler",
     "resolve_variant", "run", "run_fleet",

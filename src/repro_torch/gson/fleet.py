@@ -243,7 +243,8 @@ class Cohort:
 
         "device" strategies run one fleet superstep (up to the variant's
         superstep length per network); "host" strategies run exactly one
-        iteration plus the cadenced convergence check. Returns ``(steps,
+        iteration, and "scan" strategies one chunk of single signals,
+        plus the cadenced convergence check. Returns ``(steps,
         checked)`` — per-network iterations executed and which networks
         have a fresh history row.
         """
@@ -283,8 +284,15 @@ class Cohort:
                 self.fstate, self.probes, max_steps, self.draws, **kw)
             checked = act & (steps > 0)   # one row per superstep
         else:
-            self.fstate = fleet_core.fleet_iterate(self.fstate, act,
-                                                   self.draws, **kw)
+            if self.strategy.fleet_mode == "scan":
+                # the sequential baseline: the backend's Find Winners, the
+                # reference Update phase (as in the JAX package)
+                self.fstate = fleet_core.fleet_scan(
+                    self.fstate, act, self.draws, params=self.params,
+                    cfg=self.cfg, find_winners=self.find_winners)
+            else:
+                self.fstate = fleet_core.fleet_iterate(self.fstate, act,
+                                                       self.draws, **kw)
             steps = act.astype(np.int64)
             checked = act & (self.fstate.iteration
                              % self.spec.check_every == 0)
@@ -326,11 +334,7 @@ class FleetSession:
         groups: dict = {}
         for i, (spec, seed) in enumerate(zip(fleet.specs, fleet.seeds)):
             strategy, rt = resolve(spec)
-            if not getattr(strategy, "fleet_capable", False):
-                raise ValueError(
-                    f"variant {strategy.name!r} is not fleet-capable: "
-                    "sessions and fleets both run through the batched "
-                    "step program (fleet_mode, fleet_cfg)")
+            self._check_runnable(strategy)
             key = _cohort_key(spec, strategy, rt)
             groups.setdefault(key, []).append((i, spec, seed, strategy,
                                                rt))
@@ -348,6 +352,14 @@ class FleetSession:
         self._last_ckpt = -1
         self._mgr = (ckpt.CheckpointManager(checkpoint_dir, keep=keep)
                      if checkpoint_dir else None)
+
+    @staticmethod
+    def _check_runnable(strategy) -> None:
+        if not getattr(strategy, "fleet_capable", False):
+            raise ValueError(
+                f"variant {strategy.name!r} is not fleet-capable (no "
+                "batched step program); use a multi-signal variant or run "
+                "it as individual Sessions")
 
     # ------------------------------------------------------------------
     @property

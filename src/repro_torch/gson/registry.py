@@ -4,7 +4,7 @@ Four orthogonal axes, mirroring the paper's experimental matrix and
 ``repro.gson.registry``:
 
   VARIANTS  — how the iterate-sample-converge loop is parallelized
-              ("multi", "multi-fused")
+              ("single", "multi", "multi-fused")
   MODELS    — the growing-network rule set (GNG / GWR / SOAM)
   SAMPLERS  — the signal distribution P(xi) (benchmark surfaces)
   BACKENDS  — implementations of the step's two hot phases (paper
@@ -22,8 +22,10 @@ from typing import Any, Generic, TypeVar
 from repro_torch.core.gson.multi import find_winners_reference
 from repro_torch.core.gson.sampling import SURFACES, make_sampler
 from repro_torch.core.gson.state import GSONParams
+from repro_torch.gson import autotune
 from repro_torch.kernels.find_winners.ops import cuda_find_winners
 from repro_torch.kernels.update_phase.ops import update_phase_op
+from repro_torch.kernels.update_phase.sparse import update_phase_sparse
 
 T = TypeVar("T")
 
@@ -150,6 +152,16 @@ BACKENDS.register("cuda-update", Backend(
 BACKENDS.register("cuda-full", Backend(
     "cuda-full", cuda_find_winners, update_phase_op,
     "Hopper kernels for both hot phases"))
+BACKENDS.register("cuda-sparse", Backend(
+    "cuda-sparse", find_winners_reference, update_phase_sparse,
+    "reference Find Winners, winner-neighborhood slab Update: the "
+    "Update-phase kernels run on just the unit tiles the batch touches"))
+BACKENDS.register("cuda-auto", Backend(
+    "cuda-auto", find_winners_reference,
+    autotune.make_autotuned_update_phase(),
+    "shape-selected Update: per (capacity, m) the faster of cuda / sparse "
+    "in the selection table measured on the card "
+    "(repro_torch.gson.autotune)"))
 
 
 def resolve_backend(backend: str | Backend) -> Backend:

@@ -59,6 +59,15 @@ class Session(FleetSession):
                          checkpoint_every=checkpoint_every, keep=keep)
         self.spec = spec
 
+    @staticmethod
+    def _check_runnable(strategy) -> None:
+        # one network needs no batched program, only a tick mode of
+        # Cohort.tick: the sequential baseline runs here
+        if getattr(strategy, "fleet_mode", None) is None:
+            raise ValueError(
+                f"variant {strategy.name!r} is not fleet-capable and has no "
+                "tick mode (fleet_mode, fleet_cfg) for a Session")
+
     @property
     def stats(self) -> RunStats:
         return self._stats[0]

@@ -9,11 +9,13 @@ of it:
 
   fleet_mode                  — "host": one iteration per tick, the
                                 paper's multi-signal loop; "device": whole
-                                fused supersteps per tick
+                                fused supersteps per tick; "scan": one
+                                chunk of single signals per tick
   fleet_cfg(spec, params, vcfg) — the loop config (``SuperstepConfig``)
 
-Sessions and fleets both run through that driver, so ``fleet_capable =
-True`` marks a strategy that provides them.
+Sessions and fleets both run through ``Cohort.tick``. ``fleet_capable =
+True`` marks a strategy whose step is one program for B networks; the
+sequential baseline (``single``) runs as a ``Session`` only.
 """
 from __future__ import annotations
 
@@ -43,6 +45,14 @@ class FusedConfig:
     fixed_m: int | None = None
     min_m: int = 4
     refresh_every: int = 5
+
+
+@dataclass(frozen=True)
+class SingleConfig:
+    """Sequential single-signal baseline (the paper's reference)."""
+
+    chunk: int = 256              # signals per tick
+    refresh_every: int = 200      # SOAM refresh cadence, in signals
 
 
 @dataclass
@@ -119,6 +129,26 @@ class FusedVariant(_FleetBacked):
                      else ss.fixed_m))
 
 
+class SingleVariant:
+    """The paper's sequential baseline: one chunk of signals per tick, each
+    signal a step at m = 1 (``core.gson.single``). Not fleet-capable, as
+    in the JAX package: it runs as a ``Session``."""
+
+    name = "single"
+    config_cls = SingleConfig
+    fleet_capable = False
+    fleet_mode = "scan"
+
+    def fleet_cfg(self, spec, params, vcfg) -> SuperstepConfig:
+        """The chunk is the loop's ``max_parallel``; ``refresh_every``
+        counts signals within a chunk."""
+        return SuperstepConfig(
+            length=1, max_parallel=vcfg.chunk,
+            refresh_every=vcfg.refresh_every,
+            check_every=spec.check_every, qe_threshold=spec.qe_threshold)
+
+
 # stateless singletons: one instance per registered name
+VARIANTS.register("single", SingleVariant())
 VARIANTS.register("multi", MultiVariant())
 VARIANTS.register("multi-fused", FusedVariant())

@@ -10,7 +10,12 @@
   fed these draws sees the signals and priorities the JAX run drew.
 * numpy round trips of ``NetworkState`` between the packages.
 * ``grown_state`` / ``phase_inputs``: a pool grown by the port and the
-  inputs of one Update phase, for both packages.
+  inputs of one Update phase, for both packages; ``relabel``: the same
+  network at other unit ids, e.g. a pool fragmented across tiles.
+* The host variants (``single``) draw one chunk per iteration with the
+  same split as the fleet loop: ``split(rng) -> (rng, k_sig)``, then
+  ``sampler(k_sig, chunk)``. ``JaxReplayDraws.signals(chunk)`` is that
+  schedule, so it serves a ``single`` run as it serves ``multi``.
 * field-by-field checkers for the numerics contract: discrete fields
   bitwise, floats within a stated tolerance.
 """
@@ -129,6 +134,29 @@ def grown_state(model: str, capacity=200, max_deg=12, iters=25, m=64,
         st = multi_signal_step(st, sampler(g, m), tp, prio,
                                refresh_states=(i % 5 == 0))
     return p, tp, st
+
+
+_FILL = {"w": 0.0, "active": False, "nbr": -1, "age": 0.0, "error": 0.0,
+         "firing": 1.0, "topo_state": 0, "inconsistent_for": 0}
+UNIT_FIELDS = (*_FILL, "threshold")
+
+
+def relabel(st, new_ids, capacity: int):
+    """The port state ``st`` with unit i moved to ``new_ids[i]`` (distinct
+    ids in a pool of ``capacity``) and its edges renamed to match; free
+    slots as a fresh pool has them (threshold: unit 0's)."""
+    src = convert.state_to_numpy(st)
+    new_ids = np.asarray(new_ids)
+    out = dict(src)
+    for name in UNIT_FIELDS:
+        a = src[name]
+        fill = _FILL.get(name, a[0])
+        out[name] = np.full((capacity, *a.shape[1:]), fill, a.dtype)
+        out[name][new_ids] = a
+    nbr = out["nbr"]
+    out["nbr"] = np.where(nbr >= 0, new_ids[np.maximum(nbr, 0)],
+                          -1).astype(np.int32)
+    return convert.state_from_numpy(out, "cpu")
 
 
 def phase_inputs(st, m=64, masked=None, seed=0):

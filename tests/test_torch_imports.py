@@ -22,6 +22,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch, repro_torch.gson, repro_torch.convert\n"
         "import repro_torch.kernels.find_winners, "
         "repro_torch.kernels.update_phase\n"
+        "import repro_torch.kernels.update_phase.sparse, "
+        "repro_torch.gson.autotune, repro_torch.core.gson.single, "
+        "repro_torch.core.gson.engine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

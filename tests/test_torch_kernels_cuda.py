@@ -16,6 +16,7 @@ build or a tensor the kernels do not take.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import math
 import re
@@ -32,7 +33,8 @@ from repro_torch.core.gson.multi import (find_winners_reference,
                                          update_phase_reference)
 from repro_torch.core.gson.topology import edge_slots
 from repro_torch.core.gson.sampling import make_sampler
-from repro_torch.core.gson.state import GSONParams, init_state
+from repro_torch.core.gson.state import GSONParams, init_state, stack_states
+from repro_torch.gson import autotune
 from repro_torch.kernels import _build
 from repro_torch.kernels.find_winners import (find_winners_top2,
                                               find_winners_top2_plain)
@@ -42,6 +44,7 @@ from repro_torch.kernels.update_phase import (BIG_PRIO, edge_age_plain,
                                               update_phase_op,
                                               winner_lock_min,
                                               winner_lock_min_plain)
+from repro_torch.kernels.update_phase.sparse import update_phase_sparse
 
 torch.set_num_threads(1)
 D_TOL = dict(rtol=2e-4, atol=1e-5)
@@ -129,10 +132,11 @@ def test_find_winners_kernel_on_sparse_pools(cuda_device, n_active):
         assert torch.equal(idk[0][ok], idp[0][ok])
 
 
-def _pool(dev, model="soam", capacity=1024, max_deg=16, iters=60, m=256):
+def _pool(dev, model="soam", capacity=1024, max_deg=16, iters=60, m=256,
+          seed=0):
     p = GSONParams(model=model, insertion_threshold=0.3)
     sampler = make_sampler("torus")
-    g = torch.Generator(device=dev).manual_seed(0)
+    g = torch.Generator(device=dev).manual_seed(seed)
     st = init_state(sampler(g, 2), capacity=capacity, max_deg=max_deg,
                     init_threshold=0.3)
     for i in range(iters):
@@ -577,6 +581,104 @@ def test_session_checkpoint_restores_onto_the_card(cuda_device, tmp_path):
 
 # ---------------------------------------------------------------------------
 # no fallback (these run on any host)
+
+
+# ---------------------------------------------------------------------------
+# the winner-neighborhood slab and the sequential baseline
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["soam", "gwr"])
+@pytest.mark.parametrize("B", [1, 4])
+def test_slab_matches_dense_and_plain_on_card(cuda_device, B, model):
+    """``update_phase_sparse`` on the card (B2 and B3 + B4 at slab
+    capacity) equals ``update_phase_op`` bitwise, and its plain version
+    (the same function on CPU copies) in discrete fields bitwise, floats
+    within W_TOL."""
+    nets, ins = [], []
+    for b in range(B):
+        p, st = _pool(cuda_device, model, capacity=2048, seed=b)
+        g = torch.Generator(device=cuda_device).manual_seed(10 + b)
+        sig = make_sampler("torus")(g, 256)
+        wid, sid, d2b, _ = find_winners_reference(sig, st.w, st.active)
+        prio = torch.randperm(256, generator=g, device=cuda_device,
+                              dtype=torch.int32)
+        nets.append(st)
+        ins.append((sig, wid, sid, d2b, prio))
+    st = stack_states(nets)
+    args = (st, *(torch.stack(x) for x in zip(*ins)), p)
+    slab0 = update_phase_sparse.slab_calls
+    counts = (winner_lock_min.launches, update_accum.launches)
+    got = update_phase_sparse(*args)
+    assert update_phase_sparse.slab_calls == slab0 + 1, "slab not taken"
+    assert (winner_lock_min.launches, update_accum.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    for name, a, b in zip(got._fields, got, update_phase_op(*args)):
+        assert torch.equal(a, b), f"{name} differs from update_phase_op"
+    plain = update_phase_sparse(*(
+        x.cpu() if isinstance(x, torch.Tensor) else x
+        for x in (st.map(lambda t: t.cpu()), *args[1:])))
+    for name in ("selected", "adapt", "ins", "age"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(plain, name))
+    for name in ("w", "firing", "error"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(plain, name), **W_TOL)
+
+
+@pytest.mark.cuda
+def test_sparse_session_equals_dense_on_card(cuda_device):
+    spec = gson.RunSpec(backend="cuda-update", capacity=1024,
+                        max_iterations=30, check_every=10,
+                        variant_config=gson.MultiConfig(fixed_m=64))
+    slab0 = update_phase_sparse.slab_calls
+    st_s, stats_s = gson.run(spec.replace(backend="cuda-sparse"), seed=1)
+    assert update_phase_sparse.slab_calls - slab0 > 15
+    st_d, stats_d = gson.run(spec, seed=1)
+    assert stats_s.history == stats_d.history
+    for name in ("w", "active", "nbr", "age", "error", "firing", "threshold",
+                 "topo_state", "n_active"):
+        assert torch.equal(getattr(st_s, name), getattr(st_d, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("best", ["cuda", "sparse"])
+def test_cuda_auto_runs_kernels_and_refuses_last_on_card(cuda_device, best):
+    """On the card ``cuda-auto`` runs the kernels the table names, and
+    raises on ``neighbor_collision="last"`` instead of running the
+    reference."""
+    table = autotune.SelectionTable(cells=(autotune.Cell(
+        8, 1024, 16, best, {"cuda": 1.0, "sparse": 1.0}),))
+    up = autotune.make_autotuned_update_phase(table)
+    inputs = autotune._cell_inputs(8, 1024, 16, device=cuda_device)
+    counts = (winner_lock_min.launches, update_accum.launches)
+    got = up(*inputs)
+    assert (winner_lock_min.launches, update_accum.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    want = autotune.CANDIDATES[best](*inputs)
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), name
+    last = dataclasses.replace(inputs[-1], neighbor_collision="last")
+    with pytest.raises(NotImplementedError, match="reference backend"):
+        up(*inputs[:-1], last)
+
+
+@pytest.mark.cuda
+def test_single_launches_find_winners_once_per_signal(cuda_device):
+    spec = gson.RunSpec(variant="single", backend="cuda-full", capacity=512,
+                        max_iterations=2, check_every=1,
+                        variant_config=gson.SingleConfig(chunk=64,
+                                                         refresh_every=20))
+    counts = [f.launches for f in (find_winners_top2, winner_lock_min,
+                                   update_accum)]
+    st, stats = gson.run(spec, seed=2)
+    after = [f.launches for f in (find_winners_top2, winner_lock_min,
+                                  update_accum)]
+    # one B1 launch per signal; the Update phase is the reference's
+    assert [a - c for a, c in zip(after, counts)] == [128, 0, 0]
+    assert st.w.is_cuda and stats.signals == 128
+    ref, ref_stats = gson.run(spec.replace(backend="reference"), seed=2)
+    assert stats.history == ref_stats.history
+    assert torch.equal(st.nbr, ref.nbr)
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
