@@ -74,15 +74,40 @@ Phases, each of which fails the run (nonzero exit, no result line):
    signal, and the rows equal the ``reference`` backend's (a row that
    differs is traced to the first signal whose winners differ, which must
    be a near-tie: distances within 1e-4). Signals/s beside ``multi``'s.
-12. profile — where the main path's time goes (``torch.profiler``):
+12. ann — ``ann-windowed`` and ``ann-grid`` Sessions (``multi`` and
+   ``multi-fused``, ``ANN_ITERS`` iterations) and variant ``indexed``
+   (``INDEXED_CHUNKS`` chunks of 256 signals) at the default geometry,
+   each beside the ``reference`` backend (``single`` for ``indexed``) on
+   the same seed: it/s or signals/s, ``topology_quality``, the grid
+   guard's fires, and each ANN backend's history rows equal to the
+   ``reference`` run's through ``HORIZON`` (asserted: both searches are
+   exact); the ANN backends run the reference Update phase, so the
+   kernels' counters read 0 on this path. Then the JAX package's ANN
+   acceptance gate on the card: the gate configuration of phase 4 for
+   both ANN backends, as many iterations as the ``cuda-full`` run, chi
+   equal to its chi and QE within 5% of it (asserted).
+13. paper — ``configs/soam_paper.paper_spec()`` (capacity 32768, m up
+   to 8192) on ``cuda-full`` for ``PAPER_ITERS`` iterations, every
+   kernel launched on it, then each kernel held against its plain
+   version on that grown pool with phase 3's tolerances (B2 over four
+   8192-unit tiles), with its ms and bound at this shape; ``ann-grid``
+   (45^3 cells) at the same capacity beside it.
+14. c2 — the ``cuda`` tests of the paths that had not run on the card
+   (``GSONEngine.run``, ``autotune()``'s cache, ``cuda-auto`` in a
+   ``Session``, a ``cuda-sparse`` fleet at B = 4), the windowed
+   search's refusal of TF32 and the grid search's own answer on a dense
+   pool (the guard passes, the ids are the exhaustive search's), run by
+   pytest in a child process.
+15. profile — where the main path's time goes (``torch.profiler``):
    device busy share and top kernels at B = 1, then device ops and
    device time per iteration and the busy share of the fleet at B = 8,
    whose window must show one launch of each of the port's device
    kernels per fleet iteration (a profiler that records nothing prints
    "not measured" instead).
-13. report — the ``kernels`` JSON line (each kernel's launches on the main
-   path, and under ``paths`` on every path driven with the counters set
-   to 0 before and read after), the card's line, and last
+16. report — the ``kernels`` JSON line (each kernel's launches on the main
+   path, under ``paths`` on every path driven with the counters set to 0
+   before and read after, and under ``paper`` the capacity that phase
+   13 ran and its launches, ms and bound there), the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs ``src/repro_torch`` beside it and a CUDA device; without
@@ -117,6 +142,9 @@ CKPT_B, CKPT_ITERS = 4, 64
 SLAB_CELLS = ((256, 4096, 512), (384, 8192, 768))   # (units, capacity, m)
 SPARSE_ITERS = 128     # the cuda-sparse session (fixed_m = 512)
 SINGLE_CHUNKS = 8      # chunks of 256 signals of the single session
+ANN_ITERS = 128        # each ANN session at the default RunSpec
+INDEXED_CHUNKS = 2     # chunks of 256 signals of the indexed session
+PAPER_ITERS = 512      # the paper's configuration (capacity 32768)
 STATE_FIELDS = ("w", "active", "nbr", "age", "error", "firing",
                 "threshold", "topo_state", "inconsistent_for", "n_active",
                 "signal_count", "discarded")
@@ -259,6 +287,14 @@ def grown_pool(seed: int):
 
 def phase_kernels():
     """Each kernel against its plain version at the main path's shapes."""
+    state, params = grown_pool(SEED)
+    return hold_kernels(state, params, "kernels")
+
+
+def hold_kernels(state, params, tag: str):
+    """Each kernel against its plain version on ``state``'s pool with a
+    buffer of ``params.max_parallel`` signals (full, masked to the
+    m-schedule's m_t and to 64); times, bounds and device launches."""
     import torch
     from repro_torch.core.gson import topology as topo
     from repro_torch.core.gson.multi import (find_winners_reference,
@@ -271,10 +307,9 @@ def phase_kernels():
     from repro_torch.kernels.update_phase.ops import update_phase_op
 
     dev = torch.device("cuda")
-    state, params = grown_pool(SEED)
     C, K, D = state.capacity, state.max_deg, state.dim
     M = params.max_parallel
-    log(f"kernels: pool of {int(state.n_active)} active units, C={C} "
+    log(f"{tag}: pool of {int(state.n_active)} active units, C={C} "
         f"K={K} d={D} M={M}")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     sig = make_sampler("sphere")(g, M)
@@ -475,6 +510,23 @@ def run_session(spec, seed, budget):
     return sess, st, stats, wall, chi
 
 
+def same_rows(stats, ref_stats) -> str:
+    """Assert that the history rows through ``HORIZON`` equal the other
+    run's (iteration, units and signals; QE within 1e-4): beyond it the
+    float atomics of the Update phase may part two trajectories at a near
+    tie. Returns how many rows of the whole run are equal."""
+    rows = [r for r in stats.history if r["iteration"] <= HORIZON]
+    rrows = [r for r in ref_stats.history if r["iteration"] <= HORIZON]
+    assert rows and len(rows) == len(rrows)
+    for a, b in zip(rows, rrows):
+        assert (a["iteration"], a["units"], a["signals"]) == (
+            b["iteration"], b["units"], b["signals"]), (a, b)
+        assert math.isclose(a["qe"], b["qe"], rel_tol=1e-4), (a, b)
+    same = sum((a["units"], a["signals"]) == (b["units"], b["signals"])
+               for a, b in zip(stats.history, ref_stats.history))
+    return f"{same}/{len(stats.history)} (asserted through it {HORIZON})"
+
+
 def phase_paired_timing():
     """End to end, ``cuda-full`` against the ``reference`` backend:
     ``PAIRS`` pairs of ``PAIR_ITERS``-iteration runs per variant (same
@@ -522,31 +574,14 @@ def phase_main_path():
                           SEED, MAIN_ITERS)
         log(f"  reference backend {variant}: "
             f"{ref[2].iterations / ref[3]:.1f} it/s, units {ref[2].units}")
-        rows = [r for r in stats.history if r["iteration"] <= HORIZON]
-        rrows = [r for r in ref[2].history if r["iteration"] <= HORIZON]
-        assert rows and len(rows) == len(rrows)
-        for a, b in zip(rows, rrows):
-            assert (a["iteration"], a["units"], a["signals"]) == (
-                b["iteration"], b["units"], b["signals"]), (a, b)
-            assert math.isclose(a["qe"], b["qe"], rel_tol=1e-4), (a, b)
-        same = sum(
-            (a["units"], a["signals"]) == (b["units"], b["signals"])
-            for a, b in zip(stats.history, ref[2].history))
         log(f"  history rows equal to the reference backend's: "
-            f"{same}/{len(stats.history)} (asserted through it {HORIZON})")
+            f"{same_rows(stats, ref[2])}")
 
     # the JAX package's acceptance-gate configuration
-    p = gson.GSONParams(model="soam", insertion_threshold=0.35,
-                        age_max=64.0, eps_b=0.1, eps_n=0.01,
-                        stuck_window=60)
-    spec = gson.RunSpec(
-        variant="multi-fused", model=p, sampler="sphere",
-        variant_config=gson.FusedConfig(
-            superstep=gson.SuperstepConfig(length=64), refresh_every=2),
-        capacity=GATE["capacity"], max_deg=16, check_every=25,
-        max_iterations=GATE["iterations"])
-    sess, st, stats, wall, chi = run_session(spec, 42, None)
+    sess, st, stats, wall, chi = run_session(gate_spec("cuda-full"), 42,
+                                             None)
     check_state(st)
+    GATE_RUNS["cuda-full"] = (st, stats, wall)
     log(f"gate config (capacity 768, 1500 it): chi {chi}, units "
         f"{stats.units}, QE {stats.quantization_error:.5f}, "
         f"{stats.iterations} it in {wall:.2f} s "
@@ -554,6 +589,25 @@ def phase_main_path():
         f"{GATE['jax_units']}, QE {GATE['jax_qe']}; other draws, so not "
         f"asserted)")
     return launches, multi_rate
+
+
+GATE_RUNS: dict = {}   # backend -> (state, stats, wall) of the gate config
+
+
+def gate_spec(backend: str):
+    """The JAX package's acceptance-gate configuration
+    (``tests/test_ann.py:548-563``): SOAM on the sphere, capacity 768,
+    fused supersteps of 64, refresh every 2, 1500 iterations."""
+    from repro_torch import gson
+    p = gson.GSONParams(model="soam", insertion_threshold=0.35,
+                        age_max=64.0, eps_b=0.1, eps_n=0.01,
+                        stuck_window=60)
+    return gson.RunSpec(
+        variant="multi-fused", model=p, sampler="sphere", backend=backend,
+        variant_config=gson.FusedConfig(
+            superstep=gson.SuperstepConfig(length=64), refresh_every=2),
+        capacity=GATE["capacity"], max_deg=16, check_every=25,
+        max_iterations=GATE["iterations"])
 
 
 def grown_fleet(seeds):
@@ -1115,6 +1169,146 @@ def phase_single(multi_signals_per_s: float):
     return launches
 
 
+def gate_probes():
+    """The gate's probe set: 2048 sphere points from their own seed."""
+    import torch
+    from repro_torch.core.gson.sampling import make_sampler
+    g = torch.Generator(device="cuda").manual_seed(123)
+    return make_sampler("sphere")(g, 2048)
+
+
+def quality_line(tq) -> str:
+    return (f"chi {tq.chi} (exact {tq.exact_chi}), QE {tq.qe:.5f} (exact "
+            f"{tq.exact_qe:.5f}, {tq.qe_rel:+.2%})")
+
+
+def phase_ann():
+    """The approximate Find Winners backends and the ``indexed`` variant
+    at the default geometry beside the ``reference`` backend, then the
+    JAX package's ANN acceptance gate on the card: chi equal to the
+    ``cuda-full`` gate run's and QE within 5% of it."""
+    from repro_torch import gson
+    from repro_torch.ann.grid import guarded_search
+    from repro_torch.core.gson import metrics
+    zero_counters()
+    for variant in ("multi", "multi-fused"):
+        _, ref_st, ref_stats, ref_wall, _ = run_session(
+            gson.RunSpec(variant=variant, backend="reference"), SEED,
+            ANN_ITERS)
+        log(f"ann {variant}: reference backend {ANN_ITERS} it, "
+            f"{ANN_ITERS / ref_wall:.1f} it/s, units {ref_stats.units}")
+        for be in ("ann-windowed", "ann-grid"):
+            fires, calls = guarded_search.fires, guarded_search.calls
+            sess, st, stats, wall, _ = run_session(
+                gson.RunSpec(variant=variant, backend=be), SEED, ANN_ITERS)
+            check_state(st)
+            tq = metrics.topology_quality(st, ref_st, sess.probes)
+            guard = (f"; guard fired on {guarded_search.fires - fires} of "
+                     f"{guarded_search.calls - calls} searches"
+                     if be == "ann-grid" else "")
+            log(f"  {be}: {stats.iterations / wall:.1f} it/s "
+                f"(x{ref_wall / wall:.2f} of "
+                f"reference), units {stats.units}, "
+                f"{quality_line(tq)}{guard}; rows equal to the reference "
+                f"run's: {same_rows(stats, ref_stats)}")
+    n_sig = INDEXED_CHUNKS * gson.IndexedConfig().chunk
+    spec = gson.RunSpec(variant="indexed", max_iterations=INDEXED_CHUNKS,
+                        check_every=1)
+    _, st, stats, wall, _ = run_session(spec, SEED, None)
+    check_state(st)
+    assert stats.signals == n_sig, stats.signals
+    sess, ref_st, _, ref_wall, _ = run_session(
+        spec.replace(variant="single", backend="reference"), SEED, None)
+    tq = metrics.topology_quality(st, ref_st, sess.probes)
+    log(f"ann indexed (capacity {st.capacity}, {INDEXED_CHUNKS} chunks = "
+        f"{n_sig} "
+        f"signals): {n_sig / wall:.1f} signals/s, units {stats.units}; "
+        f"single on the reference backend {n_sig / ref_wall:.1f} "
+        f"signals/s; {quality_line(tq)}")
+    launches = {name: f.launches for name, f in counters().items()}
+    log(f"ann path launches: {launches} (the ANN backends and indexed run "
+        f"the reference Update phase)")
+
+    exact_st, exact_stats, exact_wall = GATE_RUNS["cuda-full"]
+    probes = gate_probes()
+    for be in ("ann-windowed", "ann-grid"):
+        fires, calls = guarded_search.fires, guarded_search.calls
+        _, st, stats, wall, _ = run_session(gate_spec(be), 42, None)
+        check_state(st)
+        # the gate compares runs of one length: neither converged early
+        assert stats.iterations == exact_stats.iterations, (
+            be, stats.iterations, exact_stats.iterations)
+        tq = metrics.topology_quality(st, exact_st, probes, qe_tol=0.05)
+        log(f"ann gate {be} (capacity 768, {stats.iterations} it in "
+            f"{wall:.2f} s against cuda-full's {exact_stats.iterations} it "
+            f"in {exact_wall:.2f} s): "
+            f"{quality_line(tq)}, units {stats.units}"
+            + (f"; guard fired on {guarded_search.fires - fires} of "
+               f"{guarded_search.calls - calls} searches"
+               if be == "ann-grid" else ""))
+        assert tq.chi_match, f"{be}: chi {tq.chi} != exact {tq.exact_chi}"
+        assert tq.qe_ok, f"{be}: QE {tq.qe_rel:+.2%} over the exact run's"
+    return launches
+
+
+def phase_paper():
+    """The paper's configuration (``configs/soam_paper.py``: capacity
+    32768, m up to 8192) on ``cuda-full`` for ``PAPER_ITERS`` iterations,
+    each kernel held against its plain version on the grown pool, and
+    ``ann-grid`` at the same capacity."""
+    import torch
+    from repro_torch import gson
+    from repro_torch.ann.grid import guarded_search
+    from repro_torch.configs import soam_paper
+    from repro_torch.core.gson import metrics
+    spec = soam_paper.paper_spec().replace(max_iterations=PAPER_ITERS)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    sess, st, stats, wall, chi = run_session(spec, SEED, None)
+    launches = read_counters("paper path", tuple(counters()))
+    check_state(st)
+    log(f"paper (capacity {st.capacity}, m up to "
+        f"{sess.cohorts[0].params.max_parallel}, {stats.iterations} it): "
+        f"{stats.iterations / wall:.1f} it/s, units {stats.units}, signals "
+        f"{stats.signals}, chi {chi}; launches {launches}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    results = hold_kernels(st, sess.cohorts[0].params, "paper kernels")
+    fires, calls = guarded_search.fires, guarded_search.calls
+    gsess, gst, gstats, gwall, _ = run_session(
+        spec.replace(backend="ann-grid"), SEED, None)
+    check_state(gst)
+    fw = gson.resolve_backend("ann-grid").find_winners
+    tq = metrics.topology_quality(gst, st, sess.probes)
+    log(f"paper ann-grid ({'x'.join(map(str, fw.dims_for(st.capacity)))} "
+        f"cells): {gstats.iterations / gwall:.1f} it/s against cuda-full's "
+        f"{stats.iterations / wall:.1f}, units {gstats.units}, "
+        f"{quality_line(tq)}; guard fired on {guarded_search.fires - fires}"
+        f" of {guarded_search.calls - calls} searches")
+    return launches, results, st.capacity
+
+
+# the cuda tests of the paths that had not run on the card before (the
+# engine shim, autotune's cache, cuda-auto in a Session, a cuda-sparse
+# fleet at B = 4), TF32's refusal by the windowed search and the grid's
+# own answer on a dense pool
+C2_TESTS = ("c2_", "tf32", "grid_on_card")
+
+
+def phase_c2():
+    """Those tests of ``tests/test_torch_kernels_cuda.py``, run by pytest
+    in a child process; they must all pass."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-m", "cuda", "-k", " or ".join(C2_TESTS),
+         str(ROOT / "tests" / "test_torch_kernels_cuda.py")],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=400)
+    tail = out.stdout.strip().splitlines()[-1:] or [out.stderr[-300:]]
+    log(f"c2: pytest {' or '.join(C2_TESTS)}: {tail[0]}")
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-2000:]
+
+
 def profile_window(run):
     """``torch.profiler`` around ``run()``: (wall s, device busy s, device
     ops, {kernel name: (launches, us)}, profiler)."""
@@ -1243,7 +1437,10 @@ def main() -> int:
                                   for f in fleet.values()) for k in launches},
                  "sparse": phase_sparse_session(),
                  "auto": phase_auto(),
-                 "single": phase_single(multi_rate)}
+                 "single": phase_single(multi_rate),
+                 "ann": phase_ann()}
+        paths["paper"], paper, paper_capacity = phase_paper()
+        phase_c2()
         phase_profile()
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
@@ -1267,6 +1464,10 @@ def main() -> int:
         "bound_ms": r["bound"], "bound_by": r["by"],
         "library_ms": r["library_ms"],
         "paths": {path: n.get(name, 0) for path, n in paths.items()},
+        "paper": {"capacity": paper_capacity, "launches": paths["paper"][name],
+                  "ms": paper[name]["ms"], "plain_ms": paper[name]["plain_ms"],
+                  "bound_ms": paper[name]["bound"],
+                  "max_abs_err": paper[name]["err"]},
     } for name, r in results.items()]
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(nvidia_smi_line())

@@ -6,7 +6,9 @@ state's PRNG key is not a field here: see ``repro_torch.rng``). The
 tests use this to run both packages from the same state. A fleet moves
 the same way, every array with a leading batch axis, plus its run carry
 (``iteration``, ``converged``, ``qe``); the JAX fleet's sampling keys stay
-behind, as the port gives each network its own RNG seam.
+behind, as the port gives each network its own RNG seam. The hash
+grid of ``repro.ann`` (``GridAux``) comes across as its four arrays plus
+its static ``dims``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.ann.grid import GridAux
 from repro_torch.core.gson.fleet import FleetState
 from repro_torch.core.gson.state import FIELDS, GSONParams, NetworkState
 
@@ -69,3 +72,19 @@ def params_from_fields(fields: dict) -> GSONParams:
     if unknown:
         raise ValueError(f"unknown GSONParams fields: {sorted(unknown)}")
     return GSONParams(**fields)
+
+
+_AUX_DTYPES = {"origin": torch.float32, "cell": torch.float32,
+               "sorted_units": torch.int32, "cell_start": torch.int32}
+
+
+def grid_aux_from_numpy(arrays: dict, dims, device="cpu") -> GridAux:
+    """A ``GridAux`` on ``device`` from arrays keyed by its field names
+    (e.g. the leaves of a JAX ``GridAux``: origin (dim,), cell (),
+    sorted_units (C,), cell_start (n_cells + 1,), or each with a leading
+    batch axis) and its static ``dims``."""
+    return GridAux(**{
+        name: torch.tensor(np.asarray(arrays[name]), dtype=dtype,
+                           device=device)
+        for name, dtype in _AUX_DTYPES.items()}, dims=tuple(dims))
+

@@ -10,9 +10,9 @@ network costs the device ops it cost before the axis was added.
 
 ``batchable(rank)`` lets a function written for the axis take an
 unbatched network too: when its first argument has one dimension fewer
-than ``rank``, every tensor argument (and ``NetworkState``) gets a
-leading axis of 1 and every result loses it again. These are views; the
-device sees no extra op.
+than ``rank``, every tensor argument (and ``NetworkState``, and the
+tensors of a NamedTuple) gets a leading axis of 1 and every result loses
+it again. These are views; the device sees no extra op.
 """
 from __future__ import annotations
 
@@ -116,14 +116,15 @@ def _rank(first) -> int:
             else first.dim())
 
 
-def batchable(rank: int):
-    """Decorator: ``fn`` takes a leading network axis, its first argument
-    having ``rank`` dimensions (a ``NetworkState`` counts its ``w``);
-    called with one dimension fewer, it runs as a fleet of one."""
+def batchable(rank: int, arg: int = 0):
+    """Decorator: ``fn`` takes a leading network axis, its positional
+    argument ``arg`` (the first by default) having ``rank`` dimensions (a
+    ``NetworkState`` counts its ``w``); called with one dimension fewer,
+    it runs as a fleet of one."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kw):
-            if _rank(args[0]) == rank:
+            if _rank(args[arg]) == rank:
                 return fn(*args, **kw)
 
             def up(t):

@@ -2,7 +2,8 @@
 
 The port's counterpart of ``repro.core.gson.engine``. The flat
 ``EngineConfig`` maps onto a ``RunSpec`` with a typed per-variant config
-(``MultiConfig``, ``FusedConfig`` or ``SingleConfig``), and
+(``MultiConfig``, ``FusedConfig``, ``SingleConfig`` or ``IndexedConfig``),
+and
 ``GSONEngine(cfg, sampler).run(seed)`` returns what
 ``gson.run(cfg.to_spec(sampler), seed=seed)`` returns. New code should
 build a ``repro_torch.gson.RunSpec``; the shim keeps older callers
@@ -11,10 +12,9 @@ running and grows no features.
 Differences from the JAX shim: ``run`` takes an integer seed where the
 JAX one takes a PRNG key (the port's draws go through
 ``repro_torch.rng``); ``device`` says where the run goes (the card
-unless the caller asks for the CPU); ``variant="indexed"`` raises, as
-the hash-grid Find Winners it needs is not ported yet (ROADMAP A12), and
-so do its knobs (``grid_per_axis``, ``per_cell_cap``,
-``index_rebuild_every``, ``bbox``), which are left out.
+unless the caller asks for the CPU). The grid frame of
+``variant="indexed"`` is ``GSONEngine``'s ``bbox`` argument, as in the
+JAX shim.
 """
 from __future__ import annotations
 
@@ -25,7 +25,9 @@ from repro_torch.core.gson.state import GSONParams
 from repro_torch.core.gson.superstep import SuperstepConfig
 from repro_torch.gson.session import RunStats, Session  # noqa: F401
 from repro_torch.gson.spec import RunSpec
-from repro_torch.gson.variants import FusedConfig, MultiConfig, SingleConfig
+from repro_torch.gson.variants import (DEFAULT_BBOX, FusedConfig,
+                                       IndexedConfig, MultiConfig,
+                                       SingleConfig)
 
 
 @dataclass
@@ -41,7 +43,7 @@ class EngineConfig:
     superstep: SuperstepConfig = field(
         default_factory=SuperstepConfig)  # multi-fused only
     fixed_m: int | None = None    # override the paper's m-schedule
-    chunk: int = 256              # signals per tick of single
+    chunk: int = 256              # signals per tick of single / indexed
     check_every: int = 10         # iterations between convergence checks
     refresh_every: int = 5        # multi-signal topo refresh cadence (iters)
     single_refresh_every: int = 200   # per-signal cadence inside a chunk
@@ -50,9 +52,15 @@ class EngineConfig:
     qe_threshold: float = 1e-3    # GNG/GWR convergence
     n_probe: int = 2048
     min_m: int = 4
+    # indexed variant (paper Sec. 3.1 hash grid)
+    grid_per_axis: int = 24
+    per_cell_cap: int = 24
+    index_rebuild_every: int = 64
 
-    def variant_config(self):
-        """The typed per-variant config equivalent to this flat one."""
+    def variant_config(self, bbox=None):
+        """The typed per-variant config equivalent to this flat one;
+        ``bbox`` is the indexed variant's grid frame (``None``: its
+        default)."""
         if self.variant == "multi":
             return MultiConfig(fixed_m=self.fixed_m, min_m=self.min_m,
                                refresh_every=self.refresh_every)
@@ -64,13 +72,16 @@ class EngineConfig:
             return SingleConfig(chunk=self.chunk,
                                 refresh_every=self.single_refresh_every)
         if self.variant == "indexed":
-            raise NotImplementedError(
-                'variant="indexed" needs the hash-grid Find Winners of '
-                "repro.ann, which the port does not have yet (ROADMAP A12)")
+            return IndexedConfig(chunk=self.chunk,
+                                 refresh_every=self.single_refresh_every,
+                                 grid_per_axis=self.grid_per_axis,
+                                 per_cell_cap=self.per_cell_cap,
+                                 rebuild_every=self.index_rebuild_every,
+                                 bbox=DEFAULT_BBOX if bbox is None else bbox)
         return None   # custom registered variant: use its defaults
 
     def to_spec(self, sampler, find_winners=None,
-                device: str = "cuda") -> RunSpec:
+                device: str = "cuda", bbox=None) -> RunSpec:
         """The ``RunSpec`` of this config; ``find_winners`` is a backend
         name or ``Backend`` (``None``: ``"reference"``, as the legacy
         engine's plain search)."""
@@ -79,7 +90,7 @@ class EngineConfig:
             model=self.params,
             sampler=sampler,
             backend="reference" if find_winners is None else find_winners,
-            variant_config=self.variant_config(),
+            variant_config=self.variant_config(bbox),
             capacity=self.capacity,
             dim=self.dim,
             max_deg=self.max_deg,
@@ -96,7 +107,7 @@ class GSONEngine:
     """Deprecated: use ``repro_torch.gson.run`` / ``gson.Session``."""
 
     def __init__(self, config: EngineConfig, sampler, find_winners=None,
-                 device: str = "cuda"):
+                 device: str = "cuda", bbox=DEFAULT_BBOX):
         warnings.warn(
             "GSONEngine is a legacy shim; build a repro_torch.gson.RunSpec "
             "and use repro_torch.gson.run / repro_torch.gson.Session "
@@ -104,7 +115,9 @@ class GSONEngine:
         self.cfg = config
         self.sampler = sampler
         self.find_winners = find_winners
-        self.spec = config.to_spec(sampler, find_winners, device)
+        self.bbox = (tuple(float(x) for x in bbox[0]),
+                     tuple(float(x) for x in bbox[1]))
+        self.spec = config.to_spec(sampler, find_winners, device, self.bbox)
 
     def run(self, seed: int = 0, verbose: bool = False):
         """Run to termination from ``seed``: ``(state, stats)``. ``verbose``

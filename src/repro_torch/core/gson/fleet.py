@@ -12,9 +12,9 @@ equals a ``Session(spec_i, seed=seed_i)`` by construction.
     from each network's own ``Draws`` in the order a session draws them.
   * :func:`fleet_iterate` — ONE masked multi-signal iteration for every
     network in ``mask``; the SOAM refresh on each network's own cadence.
-  * :func:`fleet_scan` — one chunk of the sequential baseline
-    (``single``) for every network in ``mask``: the step at m = 1, signal
-    by signal.
+  * :func:`fleet_scan` — one chunk of a sequential variant (``single``,
+    ``indexed``) for every network in ``mask``: the variant's scan of
+    m = 1 steps, signal by signal.
   * :func:`fleet_check` — the convergence predicate for masked networks;
     the host reads the whole batch's flags and QEs in one sync.
   * :func:`run_fleet_superstep` — the fused loop over a batch: up to
@@ -28,6 +28,15 @@ frozen network's ``Draws`` is not called (its rows of the signal buffer
 are zeros and masked out), so its stream stays where its session would
 leave it, and a fleet of networks with different samplers needs no
 special case.
+
+A *stateful* Find Winners backend (``find_winners.stateful``, the
+``repro_torch.ann`` hash grid) keeps a search structure, its aux: a
+NamedTuple whose tensors carry the network axis. :func:`fleet_iterate`
+builds a fresh one when it is given none (every iteration of ``multi``);
+:func:`run_fleet_superstep` builds it once at entry and rebuilds it, after
+the convergence check, for the running networks whose counter is due on
+the refresh cadence, as the JAX fleet superstep does. The aux never
+outlives one call, so a snapshot needs none.
 
 The run carry (iteration counters, convergence flags, last QEs) lives on
 the host: the host drives the loop and knows each network's cadence
@@ -48,7 +57,6 @@ from repro_torch.core.gson.batch import stack, take
 from repro_torch.core.gson.multi import (FindWinnersFn, UpdatePhaseFn,
                                          multi_signal_step,
                                          refresh_topology, soam_converged)
-from repro_torch.core.gson.single import single_signal_scan
 from repro_torch.core.gson.state import (FIELDS, NO_NBR, GSONParams,
                                          NetworkState, init_fleet)
 from repro_torch.core.gson.superstep import (SuperstepConfig,
@@ -100,6 +108,24 @@ def _select_nets(mask: np.ndarray, new: NetworkState,
         return torch.where(m.view(-1, *[1] * (a.dim() - 1)), a,
                            getattr(old, f))
     return NetworkState(**{f: pick(f) for f in FIELDS})
+
+
+def _select_aux(mask: np.ndarray, new, old):
+    """A stateful backend's aux: ``new`` where ``mask`` (B,) else
+    ``old``, tensor by tensor; its static fields are ``new``'s."""
+    if mask.all():
+        return new
+    if not mask.any():
+        return old
+    m = None
+    out = []
+    for a, b in zip(new, old):
+        if isinstance(a, torch.Tensor):
+            if m is None:
+                m = _device_mask(mask, a.device)
+            a = torch.where(m.view(-1, *[1] * (a.dim() - 1)), a, b)
+        out.append(a)
+    return type(new)(*out)
 
 
 def select_fleet(mask: np.ndarray, new: FleetState,
@@ -167,6 +193,7 @@ def fleet_iterate(
     cfg: SuperstepConfig,
     find_winners: FindWinnersFn | None = None,
     update_phase: UpdatePhaseFn | None = None,
+    fw_aux=None,
 ) -> FleetState:
     """One masked multi-signal iteration for every network in ``mask``.
 
@@ -176,7 +203,8 @@ def fleet_iterate(
     refreshes the ladder of each network whose counter *before* the
     increment is a multiple of ``refresh_every`` (skipped when none is
     due). Networks outside ``mask`` draw nothing and are frozen (state
-    and counter unchanged).
+    and counter unchanged). ``fw_aux``: the batched aux of a stateful
+    ``find_winners``; ``None`` builds a fresh one.
     """
     nets = fstate.nets
     dev = nets.device
@@ -197,10 +225,12 @@ def fleet_iterate(
     smask = torch.arange(M, device=dev) < m_t[:, None]
     if not mask.all():
         smask = smask & _device_mask(mask, dev)[:, None]
+    if getattr(find_winners, "stateful", False) and fw_aux is None:
+        fw_aux = find_winners.build(nets.w, nets.active)
     nets = multi_signal_step(
         nets, stack(sig), params, stack(prio), refresh_states=False,
         find_winners=find_winners, signal_mask=smask,
-        update_phase=update_phase)
+        update_phase=update_phase, fw_aux=fw_aux)
     if params.model == "soam":
         due = mask & (fstate.iteration % cfg.refresh_every == 0)
         if due.any():
@@ -214,48 +244,56 @@ def fleet_scan(
     mask: np.ndarray,
     draws: list,
     *,
-    params: GSONParams,
-    cfg: SuperstepConfig,
-    find_winners: FindWinnersFn | None = None,
+    n: int,
+    scan,
 ) -> FleetState:
-    """One chunk of the sequential baseline for every network in ``mask``.
+    """One chunk of a sequential variant for every network in ``mask``.
 
-    Each running network draws ``cfg.max_parallel`` signals (the chunk)
-    from its own ``Draws`` and takes them one at a time
-    (``single.single_signal_scan``, SOAM refreshing every
-    ``cfg.refresh_every`` signals of the chunk); the Update phase is the
-    reference's. Its iteration counter counts chunks. Networks outside
-    ``mask`` draw nothing and are frozen.
+    Each running network draws ``n`` signals (the chunk) from its own
+    ``Draws``; ``scan(nets, signals (B, n, dim)) -> nets`` takes them one
+    at a time (``single.single_signal_scan``, ``ann.indexed_scan``). The
+    iteration counter counts chunks. Networks outside ``mask`` draw
+    nothing and are frozen.
     """
     nets = fstate.nets
     dev = nets.device
-    n = cfg.max_parallel
     idle = torch.zeros((n, nets.dim), device=dev)
     sig = stack([d.signals(n).to(dev) if run else idle
                  for d, run in zip(draws, mask)])
-    nets = single_signal_scan(nets, sig, params,
-                              refresh_every=cfg.refresh_every,
-                              find_winners=find_winners)
+    nets = scan(nets, sig)
     new = fstate.replace(nets=nets, iteration=fstate.iteration + 1)
     return select_fleet(mask, new, fstate)
 
 
+def convergence_check(nets: NetworkState, probes: torch.Tensor, *,
+                      params: GSONParams, mode: str, qe_threshold: float,
+                      mask: np.ndarray | None = None):
+    """The convergence predicate on the device: ``(nets, done, qe)``.
+
+    "topology": recompute the state ladder (the networks in ``mask``, or
+    all, keep the fresh ladder) and apply SOAM's all-disk/patch
+    criterion, with QE against the probes beside it; "qe": quantization
+    error against each network's probe set under ``qe_threshold``.
+    """
+    if mode == "topology":
+        fresh = refresh_topology(nets, params)
+        nets = fresh if mask is None else _select_nets(mask, fresh, nets)
+        return (nets, soam_converged(nets),
+                metrics.quantization_error(nets, probes))
+    done, qe = metrics.qe_convergence(nets, probes, qe_threshold)
+    return nets, done, qe
+
+
 def fleet_check(fstate: FleetState, probes: torch.Tensor, mask: np.ndarray,
                 *, params: GSONParams, cfg: SuperstepConfig) -> FleetState:
-    """Evaluate the convergence predicate for every network in ``mask``.
-
-    SOAM: recompute the state ladder (a checked network keeps the fresh
-    ladder) and apply the all-disk/patch criterion; GNG/GWR: quantization
-    error against each network's probe set. The host reads the flags and
-    QEs of the whole batch in one sync.
-    """
-    nets = fstate.nets
-    if params.model == "soam":
-        nets = _select_nets(mask, refresh_topology(nets, params), nets)
-        done = soam_converged(nets)
-        qe = metrics.quantization_error(nets, probes)
-    else:
-        done, qe = metrics.qe_convergence(nets, probes, cfg.qe_threshold)
+    """Evaluate the convergence predicate (``cfg.convergence``) for every
+    network in ``mask``; the host reads the flags and QEs of the whole
+    batch in one sync."""
+    mode = cfg.convergence or ("topology" if params.model == "soam"
+                               else "qe")
+    nets, done, qe = convergence_check(
+        fstate.nets, probes, params=params, mode=mode,
+        qe_threshold=cfg.qe_threshold, mask=mask)
     host = torch.stack([done.to(torch.float64),
                         qe.to(torch.float64)]).cpu().numpy()
     return fstate.replace(
@@ -283,20 +321,33 @@ def run_fleet_superstep(
     as it converges or spends its own budget, and the loop runs until the
     whole batch is frozen. Returns ``(fstate, steps)`` with ``steps[i]``
     the iterations network i executed in this call.
+
+    A stateful ``find_winners`` gets its aux built once at entry and
+    rebuilt, after the check, for the running networks whose counter
+    (after the increment) is a multiple of ``cfg.refresh_every``.
     """
     steps = np.zeros(fstate.batch, np.int64)
+    stateful = getattr(find_winners, "stateful", False)
+    aux = (find_winners.build(fstate.nets.w, fstate.nets.active)
+           if stateful else None)
     while True:
         running = ~fstate.converged & (steps < max_steps)
         if not running.any():
             return fstate, steps
         fstate = fleet_iterate(fstate, running, draws, params=params,
                                cfg=cfg, find_winners=find_winners,
-                               update_phase=update_phase)
+                               update_phase=update_phase, fw_aux=aux)
         steps += running
         check = running & (fstate.iteration % cfg.check_every == 0)
         if check.any():
             fstate = fleet_check(fstate, probes, check, params=params,
                                  cfg=cfg)
+        if stateful:
+            due = running & (fstate.iteration % cfg.refresh_every == 0)
+            if due.any():
+                nets = fstate.nets
+                aux = _select_aux(due, find_winners.build(nets.w,
+                                                          nets.active), aux)
 
 
 def fleet_health(nets: NetworkState) -> torch.Tensor:

@@ -2,8 +2,8 @@
 
 ``quantization_error`` and ``qe_convergence`` work on tensors, per
 network of a fleet (or on one network); ``edge_count`` and ``summary`` on
-one network. The Euler characteristic and the topology
-gate are host-side (numpy) reporting utilities, as in
+one network. The Euler characteristic, the genus it implies and the
+topology gate are host-side (numpy) reporting utilities, as in
 ``repro.core.gson.metrics``: for a converged SOAM triangulation V - E + F
 must equal 2 - 2*genus of the sampled surface.
 """
@@ -67,6 +67,13 @@ def euler_characteristic(state: NetworkState) -> tuple[int, int, int, int]:
                 continue
             f += len([c for c in (adj[a] & adj[b]) if c > b])
     return v, e, f, v - e + f
+
+
+def genus(state: NetworkState) -> float:
+    """The genus the Euler characteristic implies for a closed
+    orientable surface: (2 - chi) / 2."""
+    _, _, _, chi = euler_characteristic(state)
+    return (2 - chi) / 2.0
 
 
 class TopologyQuality(NamedTuple):

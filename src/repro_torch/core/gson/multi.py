@@ -287,6 +287,7 @@ def multi_signal_step(
     find_winners: FindWinnersFn | None = None,
     signal_mask: torch.Tensor | None = None,
     update_phase: UpdatePhaseFn | None = None,
+    fw_aux=None,
 ) -> NetworkState:
     """One multi-signal iteration of every network. ``signals``:
     (B, m, dim) float32.
@@ -298,6 +299,14 @@ def multi_signal_step(
     they never win the lock, never adapt/insert, and are not counted as
     consumed signals. The fused loop keeps one static ``max_parallel``
     buffer and masks in its first ``m_t`` rows.
+
+    ``fw_aux``: optional precomputed search structure of a *stateful*
+    Find Winners backend (``find_winners.stateful`` is True, e.g. the
+    ``repro_torch.ann`` hash grid), every leaf batched. Such a backend
+    provides ``build(w, active) -> aux`` and takes the result as
+    ``__call__(..., aux=)``; the loop drivers carry the aux and rebuild
+    it on the refresh cadence. ``None`` means the backend rebuilds
+    internally: always correct, just not amortized.
 
     The input state is not modified; a new state is returned.
     """
@@ -315,7 +324,11 @@ def multi_signal_step(
     is_soam = params.model == "soam"
 
     # ---- 1. Find Winners ---------------------------------------------------
-    wid, sid, d2b, _ = find_winners(signals, state.w, state.active)
+    if fw_aux is not None:
+        wid, sid, d2b, _ = find_winners(signals, state.w, state.active,
+                                        aux=fw_aux)
+    else:
+        wid, sid, d2b, _ = find_winners(signals, state.w, state.active)
 
     # ---- 2-3e. dense Update phase (pluggable backend) ----------------------
     up = update_phase(state, signals, wid, sid, d2b, prio, params,

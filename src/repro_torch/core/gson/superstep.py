@@ -41,6 +41,9 @@ class SuperstepConfig:
     refresh_every: int = 5        # SOAM topo refresh cadence (iterations)
     check_every: int = 10         # convergence-check cadence (iterations)
     qe_threshold: float = 1e-3    # GNG/GWR convergence
+    # the convergence predicate: "topology" (SOAM's criterion) or "qe";
+    # None follows the rule set (``"topology"`` for SOAM)
+    convergence: str | None = None
 
     def __post_init__(self):
         if self.length < 1:

@@ -25,34 +25,38 @@ resumable session, or as a fleet of B networks stepped together.
 Runs go on the card unless ``RunSpec(device="cpu")``; on a CPU tensor
 every kernel wrapper runs its plain PyTorch version.
 
-Registries: ``VARIANTS`` (single / multi / multi-fused; ``single`` is the
-paper's sequential baseline and runs as a ``Session`` only), ``MODELS``
-(gng / gwr / soam), ``SAMPLERS`` (the benchmark surfaces), ``BACKENDS``
-(reference / cuda / cuda-update / cuda-full: per-phase Hopper kernels
-for Find Winners and the dense Update phase; cuda-sparse: the Update
-kernels on the winner-neighborhood slab; cuda-auto: per shape the
-fastest Update phase of the selection table measured on the card,
-``repro_torch.gson.autotune``).
+Registries: ``VARIANTS`` (single / indexed / multi / multi-fused;
+``single`` and ``indexed`` are the paper's sequential baselines and run as
+a ``Session`` only), ``MODELS`` (gng / gwr / soam), ``SAMPLERS`` (the
+benchmark surfaces), ``BACKENDS`` (reference / cuda / cuda-update /
+cuda-full: per-phase Hopper kernels for Find Winners and the dense Update
+phase; cuda-sparse: the Update kernels on the winner-neighborhood slab;
+cuda-auto: per shape the fastest Update phase of the selection table
+measured on the card, ``repro_torch.gson.autotune``; ann-windowed /
+ann-grid / indexed: the approximate searches of ``repro_torch.ann`` with
+the reference Update phase, ``ann_backend`` at another recall target).
 """
 from repro_torch.core.gson.state import GSONParams, NetworkState
 from repro_torch.core.gson.superstep import SuperstepConfig
 from repro_torch.gson.fleet import FleetSession, FleetSpec, run_fleet
 from repro_torch.gson.registry import (BACKENDS, MODELS, SAMPLERS, VARIANTS,
                                        Backend, ModelDef, Registry,
-                                       resolve_backend, resolve_model,
-                                       resolve_sampler)
+                                       ann_backend, resolve_backend,
+                                       resolve_model, resolve_sampler)
 from repro_torch.gson.session import RunStats, Session, run
 from repro_torch.gson.spec import RunSpec, resolve, resolve_variant
-from repro_torch.gson.variants import (FusedConfig, MultiConfig, Runtime,
-                                       SingleConfig, VariantStrategy)
+from repro_torch.gson.variants import (DEFAULT_BBOX, FusedConfig,
+                                       IndexedConfig, MultiConfig, Runtime,
+                                       SingleConfig, VariantStrategy,
+                                       check_convergence)
 from repro_torch.rng import TorchDraws
 
 __all__ = [
-    "BACKENDS", "MODELS", "SAMPLERS", "VARIANTS",
+    "BACKENDS", "DEFAULT_BBOX", "MODELS", "SAMPLERS", "VARIANTS",
     "Backend", "FleetSession", "FleetSpec", "FusedConfig", "GSONParams",
-    "ModelDef", "MultiConfig", "NetworkState", "Registry", "RunSpec",
-    "RunStats", "Runtime", "Session", "SingleConfig", "SuperstepConfig",
-    "TorchDraws", "VariantStrategy", "resolve",
-    "resolve_backend", "resolve_model", "resolve_sampler",
-    "resolve_variant", "run", "run_fleet",
+    "IndexedConfig", "ModelDef", "MultiConfig", "NetworkState", "Registry",
+    "RunSpec", "RunStats", "Runtime", "Session", "SingleConfig",
+    "SuperstepConfig", "TorchDraws", "VariantStrategy", "ann_backend",
+    "check_convergence", "resolve", "resolve_backend", "resolve_model",
+    "resolve_sampler", "resolve_variant", "run", "run_fleet",
 ]

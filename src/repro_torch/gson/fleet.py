@@ -37,6 +37,7 @@ step — a kernel that cannot run raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Iterator, Sequence
@@ -48,6 +49,7 @@ from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core.gson import fleet as fleet_core
 from repro_torch.core.gson import metrics
 from repro_torch.gson.spec import RunSpec, resolve
+from repro_torch.gson.variants import convergence_mode
 from repro_torch.rng import TorchDraws
 
 HistoryCallback = Callable[[dict], None]
@@ -160,10 +162,16 @@ class Cohort:
         rt0 = rts[0]
         self.spec = self.specs[0]          # shape-defining spec
         self.device = _device(self.spec)
+        self.rts = rts
         self.params = rt0.params
         self.find_winners = rt0.find_winners
         self.update_phase = rt0.update_phase
-        self.cfg = self.strategy.fleet_cfg(self.spec, rt0.params, rt0.vcfg)
+        self.cfg = dataclasses.replace(
+            self.strategy.fleet_cfg(self.spec, rt0.params, rt0.vcfg),
+            convergence=convergence_mode(rt0.params))
+        self.scan = (self.strategy.scan(rt0.params, self.cfg, rt0.vcfg,
+                                        rt0.find_winners)
+                     if self.strategy.fleet_mode == "scan" else None)
         self.draws = (list(draws) if draws is not None else [
             TorchDraws(seed, self.device, rt.sampler)
             for seed, rt in zip(self.seeds, rts)])
@@ -284,12 +292,11 @@ class Cohort:
                 self.fstate, self.probes, max_steps, self.draws, **kw)
             checked = act & (steps > 0)   # one row per superstep
         else:
-            if self.strategy.fleet_mode == "scan":
-                # the sequential baseline: the backend's Find Winners, the
-                # reference Update phase (as in the JAX package)
+            if self.scan is not None:
+                # a sequential baseline: one chunk of m = 1 steps
                 self.fstate = fleet_core.fleet_scan(
-                    self.fstate, act, self.draws, params=self.params,
-                    cfg=self.cfg, find_winners=self.find_winners)
+                    self.fstate, act, self.draws, n=self.cfg.max_parallel,
+                    scan=self.scan)
             else:
                 self.fstate = fleet_core.fleet_iterate(self.fstate, act,
                                                        self.draws, **kw)

@@ -33,6 +33,8 @@ or launched raises instead of handing over to the reference.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.gson.fleet import FleetSession, FleetSpec, RunStats
@@ -71,6 +73,13 @@ class Session(FleetSession):
     @property
     def stats(self) -> RunStats:
         return self._stats[0]
+
+    @property
+    def rt(self):
+        """The run's resolved ``Runtime``, with its probe set."""
+        self._start()
+        c = self.cohorts[0]
+        return dataclasses.replace(c.rts[0], probes=c.probes[0])
 
     @property
     def state(self):

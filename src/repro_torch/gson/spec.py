@@ -58,6 +58,11 @@ class RunSpec:
 def resolve_variant(variant: str | Any) -> VariantStrategy:
     if isinstance(variant, str):
         variant = VARIANTS.get(variant)
+    if isinstance(variant, type):
+        # classes registered through the @VARIANTS.register decorator (or
+        # passed directly) are instantiated: strategies are stateless, so
+        # a fresh instance is equivalent to a singleton
+        variant = variant()
     if not isinstance(variant, VariantStrategy):
         raise TypeError(
             f"variant must be a registered name or a VariantStrategy "

@@ -13,19 +13,34 @@ of it:
                                 chunk of single signals per tick
   fleet_cfg(spec, params, vcfg) — the loop config (``SuperstepConfig``)
 
+and, in "scan" mode, ``scan(params, cfg, vcfg, find_winners)``: the chunk
+function ``(nets, signals) -> nets``.
+
 Sessions and fleets both run through ``Cohort.tick``. ``fleet_capable =
 True`` marks a strategy whose step is one program for B networks; the
-sequential baseline (``single``) runs as a ``Session`` only.
+sequential baselines (``single``, ``indexed``) run as a ``Session`` only.
+The JAX strategies' ``step`` hook and its ``StepResult`` have no
+counterpart: the one driver asks a strategy only for its tick mode.
+:func:`check_convergence` is the JAX package's shared termination
+predicate, selected by the model's registered ``convergence``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Protocol, runtime_checkable
 
+import torch
+
+from repro_torch.ann import indexed_find_winners, indexed_scan
+from repro_torch.core.gson import fleet as fleet_core
+from repro_torch.core.gson.single import single_signal_scan
 from repro_torch.core.gson.state import GSONParams
 from repro_torch.core.gson.superstep import SuperstepConfig, next_pow2
-from repro_torch.gson.registry import VARIANTS
+from repro_torch.gson.registry import MODELS, VARIANTS
+
+DEFAULT_BBOX = ((-3.0, -3.0, -3.0), (3.0, 3.0, 3.0))
 
 
 @dataclass(frozen=True)
@@ -55,9 +70,23 @@ class SingleConfig:
     refresh_every: int = 200      # SOAM refresh cadence, in signals
 
 
+@dataclass(frozen=True)
+class IndexedConfig:
+    """Single-signal with the hash-grid Find Winners index (Sec. 3.1)."""
+
+    chunk: int = 256
+    refresh_every: int = 200
+    grid_per_axis: int = 24
+    per_cell_cap: int = 24
+    rebuild_every: int = 64
+    bbox: tuple = DEFAULT_BBOX    # ((min,)*dim, (max,)*dim)
+
+
 @dataclass
 class Runtime:
-    """Resolved per-run context: the spec's axes as concrete objects."""
+    """Resolved per-run context: the spec's axes as concrete objects;
+    ``probes`` is the run's probe set where one is known
+    (``Session.rt``)."""
 
     spec: Any                     # the RunSpec
     params: GSONParams
@@ -65,12 +94,34 @@ class Runtime:
     sampler: Any                  # f(gen, n) -> (n, dim) f32
     find_winners: Any             # FindWinnersFn | None
     update_phase: Any = None      # UpdatePhaseFn | None
+    probes: torch.Tensor | None = None
 
 
 @runtime_checkable
 class VariantStrategy(Protocol):
     name: str
     config_cls: type
+
+
+def convergence_mode(params: GSONParams) -> str:
+    """The model's registered ``ModelDef.convergence``; "qe" for a model
+    the registry does not hold."""
+    return (MODELS.get(params.model).convergence if params.model in MODELS
+            else "qe")
+
+
+def check_convergence(rt: Runtime, state):
+    """The termination predicate of one network: the run loop's own
+    (``core.gson.fleet.convergence_check``), selected by the model's
+    registered ``convergence``: "topology" runs SOAM's criterion on a
+    fresh state ladder, "qe" compares the quantization error on
+    ``rt.probes`` with the threshold. Returns ``(done, qe, state)``, the
+    state with the fresh ladder where one was computed."""
+    state, done, qe = fleet_core.convergence_check(
+        state, rt.probes, params=rt.params,
+        mode=convergence_mode(rt.params),
+        qe_threshold=rt.spec.qe_threshold)
+    return bool(done), float(qe), state
 
 
 class _FleetBacked:
@@ -147,8 +198,34 @@ class SingleVariant:
             refresh_every=vcfg.refresh_every,
             check_every=spec.check_every, qe_threshold=spec.qe_threshold)
 
+    def scan(self, params, cfg, vcfg, find_winners):
+        """The chunk: the step at m = 1 with the backend's Find Winners
+        and the reference Update phase, as in the JAX package."""
+        return functools.partial(single_signal_scan, params=params,
+                                 refresh_every=cfg.refresh_every,
+                                 find_winners=find_winners)
+
+
+class IndexedVariant(SingleVariant):
+    """The paper's Indexed baseline on the ``repro_torch.ann`` grid: the
+    hash-grid quantizer in its exhaustive-fallback discipline, built from
+    the config (the run's backend is not used, as in the JAX package),
+    with the aux rebuilt every ``rebuild_every`` signals of a chunk
+    (``ann.indexed_scan``). A ``Session`` only."""
+
+    name = "indexed"
+    config_cls = IndexedConfig
+
+    def scan(self, params, cfg, vcfg, find_winners):
+        fw = indexed_find_winners(vcfg.grid_per_axis, vcfg.per_cell_cap,
+                                  vcfg.bbox)
+        return functools.partial(indexed_scan, params=params, fw=fw,
+                                 rebuild_every=vcfg.rebuild_every,
+                                 refresh_every=vcfg.refresh_every)
+
 
 # stateless singletons: one instance per registered name
 VARIANTS.register("single", SingleVariant())
+VARIANTS.register("indexed", IndexedVariant())
 VARIANTS.register("multi", MultiVariant())
 VARIANTS.register("multi-fused", FusedVariant())

@@ -25,6 +25,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.kernels.update_phase.sparse, "
         "repro_torch.gson.autotune, repro_torch.core.gson.single, "
         "repro_torch.core.gson.engine\n"
+        "import repro_torch.ann, repro_torch.ann.grid, "
+        "repro_torch.ann.windowed, repro_torch.data.pointclouds, "
+        "repro_torch.configs.soam_paper\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -35,8 +38,9 @@ def test_import_loads_no_jax_and_no_repro():
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
-                                       ROOT / "chip_smoke.py"]))
+    str(p.relative_to(ROOT)) for p in [
+        *PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+        ROOT / "examples" / "torch_surface_reconstruction.py"]))
 def test_source_imports_no_jax_and_no_repro(path):
     src = (ROOT / path).read_text()
     assert not FORBIDDEN.search(src), f"{path} imports jax or repro"

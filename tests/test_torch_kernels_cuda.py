@@ -681,6 +681,155 @@ def test_single_launches_find_winners_once_per_signal(cuda_device):
     assert torch.equal(st.nbr, ref.nbr)
 
 
+# ---------------------------------------------------------------------------
+# paths that had not run on the card: the engine shim, autotune's cache,
+# cuda-auto in a Session, a cuda-sparse fleet (the "c2" phase of
+# chip_smoke.py runs these four)
+
+
+@pytest.mark.cuda
+def test_c2_engine_run_on_card_equals_its_session(cuda_device):
+    from repro_torch.core.gson.engine import EngineConfig, GSONEngine
+    cfg = EngineConfig(variant="multi", capacity=512, max_iterations=30,
+                       check_every=10)
+    with pytest.warns(DeprecationWarning):
+        engine = GSONEngine(cfg, "sphere", find_winners="cuda-full")
+    assert engine.spec.device == "cuda"
+    state, stats = engine.run(seed=3)
+    sess = gson.Session(engine.spec, seed=3)
+    sess.run()
+    assert state.w.is_cuda and stats.iterations == 30
+    assert stats.history == sess.stats.history
+    for name in _STATE_FIELDS:
+        assert torch.equal(getattr(state, name),
+                           getattr(sess.state, name)), name
+
+
+@pytest.mark.cuda
+def test_c2_autotune_writes_a_cache_that_loads_back(cuda_device, tmp_path,
+                                                     monkeypatch):
+    cache = tmp_path / "table.json"
+    monkeypatch.setenv(autotune.ENV_CACHE, str(cache))
+    monkeypatch.delenv(autotune.ENV_TABLE, raising=False)
+    table = autotune.autotune(cells=((32, 768, 64), (256, 4096, 512)),
+                              n=3, warmup=1)
+    assert cache.is_file()
+    loaded = autotune.load_table()
+    assert loaded.to_json() == table.to_json()
+    assert [(c.units, c.capacity, c.m) for c in loaded.cells] == [
+        (32, 768, 64), (256, 4096, 512)]
+    assert {c.best for c in loaded.cells} <= {"cuda", "sparse"}
+    assert "reference" in loaded.cells[0].t_us
+    up = autotune.make_autotuned_update_phase()
+    assert up.select(768, 64) == loaded.cells[0].best
+
+
+@pytest.mark.cuda
+def test_c2_cuda_auto_session_equals_cuda_update(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """The committed table picks ``cuda`` at every cell, so a ``cuda-auto``
+    Session is a ``cuda-update`` one, bitwise."""
+    monkeypatch.delenv(autotune.ENV_TABLE, raising=False)
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "none.json"))
+    up = gson.resolve_backend("cuda-auto").update_phase
+    assert up.resolve_table().to_json()["cells"] == autotune.load_table(
+        autotune.PACKAGED_TABLE).to_json()["cells"]
+    assert {c.best for c in up.resolve_table().cells} == {"cuda"}
+    spec = gson.RunSpec(backend="cuda-update", max_iterations=64,
+                        check_every=16)
+    counts = (winner_lock_min.launches, update_accum.launches)
+    st_a, stats_a = gson.run(spec.replace(backend="cuda-auto"), seed=4)
+    assert (winner_lock_min.launches - counts[0],
+            update_accum.launches - counts[1]) == (64, 64)
+    st_u, stats_u = gson.run(spec, seed=4)
+    assert stats_a.history == stats_u.history and len(stats_a.history) == 4
+    for name in _STATE_FIELDS:
+        assert torch.equal(getattr(st_a, name), getattr(st_u, name)), name
+
+
+@pytest.mark.cuda
+def test_c2_cuda_sparse_fleet_at_b4(cuda_device):
+    spec = gson.RunSpec(backend="cuda-sparse", max_iterations=30,
+                        check_every=10,
+                        variant_config=gson.MultiConfig(fixed_m=512))
+    fs = gson.FleetSpec.broadcast(spec, seeds=range(4))
+    slab0 = update_phase_sparse.slab_calls
+    fleet = gson.FleetSession(fs)
+    fleet.run()
+    assert update_phase_sparse.slab_calls - slab0 > 15
+    dense = gson.FleetSession(gson.FleetSpec.broadcast(
+        spec.replace(backend="cuda-update"), seeds=range(4)))
+    dense.run()
+    for i in range(4):
+        st, stats = fleet.result(i)
+        st_d, stats_d = dense.result(i)
+        assert stats.history == stats_d.history
+        sess = gson.Session(spec, seed=i)
+        sess.run()
+        # qe is a mean over a batch of another shape: within 1e-6
+        for row, srow in zip(stats.history, sess.stats.history,
+                             strict=True):
+            assert (row["iteration"], row["units"], row["signals"]) == (
+                srow["iteration"], srow["units"], srow["signals"])
+            assert row["qe"] == pytest.approx(srow["qe"], rel=1e-6)
+        for name in _STATE_FIELDS:
+            assert torch.equal(getattr(st, name), getattr(st_d, name)), \
+                (i, name)
+            assert torch.equal(getattr(st, name),
+                               getattr(sess.state, name)), (i, name)
+
+
+@pytest.mark.cuda
+def test_windowed_refuses_tf32_on_card(cuda_device):
+    from repro_torch import ann
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    sig = torch.randn(64, 3, generator=g, device=cuda_device)
+    w = torch.randn(256, 3, generator=g, device=cuda_device)
+    act = torch.ones(256, dtype=torch.bool, device=cuda_device)
+    fw = ann.windowed_find_winners(0.95)
+    for a, b in zip(fw(sig, w, act), find_winners_reference(sig, w, act)):
+        assert torch.equal(a, b)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TensorFloat-32"):
+            fw(sig, w, act)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_grid_on_card_returns_its_own_answer_on_a_dense_pool(cuda_device):
+    """Two networks of 4096 units on the sphere (cells of ~0.125, units
+    ~0.06 apart): every signal passes the radius guard, so the grid's own
+    shortlist answer reaches the caller, the reference is not run, and
+    its ids are the exhaustive search's."""
+    from repro_torch import ann
+    from repro_torch.ann.grid import grid_search, guarded_search
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    sphere = make_sampler("sphere")
+    w = torch.stack([sphere(g, 4096) for _ in range(2)])
+    sig = torch.stack([sphere(g, 1024) for _ in range(2)])
+    act = torch.ones((2, 4096), dtype=torch.bool, device=cuda_device)
+    fw = ann.grid_find_winners(0.95)
+    aux = fw.build(w, act)
+    calls, fires = guarded_search.calls, guarded_search.fires
+    out = fw(sig, w, act, aux=aux)
+    assert (guarded_search.calls, guarded_search.fires) == (calls + 1, fires)
+    own = grid_search(aux, sig, w, act, per_cell_cap=fw.per_cell_cap,
+                      n_anchors=fw.n_anchors)
+    for a, b in zip(out, own):
+        assert torch.equal(a, b)
+    ref = find_winners_reference(sig, w, act)
+    for b in range(2):
+        # squared distances here are ~1e-3: a tie is closer than 1e-6,
+        # a few ulps of the reference's expansion at |x|, |w| ~ 1
+        ok = near_tie_free(sig[b], w[b], act[b], eps=1e-6)
+        assert int(ok.sum()) > 960
+        for k in (0, 1):
+            assert torch.equal(out[k][b][ok], ref[k][b][ok]), (b, k)
+            torch.testing.assert_close(out[k + 2][b], ref[k + 2][b], **D_TOL)
+
+
 def test_non_cpu_tensors_never_take_the_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises."""
     sig = torch.zeros((1, 4, 3), device="meta")

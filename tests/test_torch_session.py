@@ -95,7 +95,8 @@ def test_cuda_run_without_a_card_raises():
 def test_backends_and_defaults():
     assert set(gson.BACKENDS.names()) == {"reference", "cuda", "cuda-update",
                                           "cuda-full", "cuda-sparse",
-                                          "cuda-auto"}
+                                          "cuda-auto", "ann-windowed",
+                                          "ann-grid", "indexed"}
     spec = gson.RunSpec()
     assert (spec.variant, spec.model, spec.sampler, spec.backend,
             spec.device) == ("multi", "soam", "sphere", "cuda-full", "cuda")

@@ -123,9 +123,10 @@ def test_single_is_not_fleet_capable_as_in_jax():
 
 
 def test_variant_registry():
-    assert {"single", "multi", "multi-fused"} == set(gson.VARIANTS.names())
-    with pytest.raises(KeyError, match="unknown variant 'indexed'"):
-        gson.Session(gson.RunSpec(variant="indexed", device="cpu"))
+    assert {"single", "indexed", "multi", "multi-fused"} == set(
+        gson.VARIANTS.names())
+    with pytest.raises(KeyError, match="unknown variant 'warp'"):
+        gson.Session(gson.RunSpec(variant="warp", device="cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +143,14 @@ def test_engine_config_maps_to_typed_variant_configs():
                           single_refresh_every=30).variant_config()
     assert single == gson.SingleConfig(chunk=128, refresh_every=30)
     assert isinstance(EngineConfig().variant_config(), gson.MultiConfig)
-    with pytest.raises(NotImplementedError, match="A12"):
-        EngineConfig(variant="indexed").variant_config()
+    indexed = EngineConfig(variant="indexed", chunk=64,
+                           single_refresh_every=30, grid_per_axis=12,
+                           per_cell_cap=8, index_rebuild_every=16)
+    assert indexed.variant_config(((-2.0,) * 3, (2.0,) * 3)) == \
+        gson.IndexedConfig(chunk=64, refresh_every=30, grid_per_axis=12,
+                           per_cell_cap=8, rebuild_every=16,
+                           bbox=((-2.0,) * 3, (2.0,) * 3))
+    assert indexed.variant_config().bbox == gson.DEFAULT_BBOX
     a, b = EngineConfig(), EngineConfig()
     assert a.params is not b.params and a.superstep is not b.superstep
 
