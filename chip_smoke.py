@@ -92,19 +92,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
    version on that grown pool with phase 3's tolerances (B2 over four
    8192-unit tiles), with its ms and bound at this shape; ``ann-grid``
    (45^3 cells) at the same capacity beside it.
-14. c2 — the ``cuda`` tests of the paths that had not run on the card
+14. serve — a ``ReconstructionServer`` (``SERVE_SLOTS`` slots, slices of
+   ``SERVE_SLICE`` iterations, checkpoints under ``build/``) on
+   ``cuda-full`` serves four ``multi-fused`` and two ``multi`` jobs at the
+   default geometry, the paper's configuration (its own cohort in a
+   mixed-shape wave) and a ``single`` job on the solo path, under the
+   injected faults of ``SERVE_FAULTS`` (a poisoned job, a crash
+   mid-checkpoint, device loss), every launch counter set to 0 before and
+   read after: every job ends ``done``, the poisoned job after one retry
+   from its pre-poison checkpoint, device loss costs no retry, and every
+   fault record and warning is an injected one (no ``advance_error``,
+   ``stall`` or ``admission_error``); each job equals its dedicated
+   ``Session`` (fleet jobs: state bitwise, rows equal, ``qe`` within
+   1e-6; the single job: rows and state); B1 and B2 / B3 + B4 on the calls
+   recorded inside the server (one per shape) equal their plain versions
+   with phase 3's tolerances. Ticks, wall, jobs/s, network-it/s beside
+   phase 6's fleet, checkpoint ms per tick, beside the card's line.
+15. c2 — the ``cuda`` tests of the paths that had not run on the card
    (``GSONEngine.run``, ``autotune()``'s cache, ``cuda-auto`` in a
    ``Session``, a ``cuda-sparse`` fleet at B = 4), the windowed
-   search's refusal of TF32 and the grid search's own answer on a dense
-   pool (the guard passes, the ids are the exhaustive search's), run by
-   pytest in a child process.
-15. profile — where the main path's time goes (``torch.profiler``):
+   search's refusal of TF32, the grid search's own answer on a dense
+   pool (the guard passes, the ids are the exhaustive search's) and a
+   served poisoned job on the card, run by pytest in a child process.
+16. profile — where the main path's time goes (``torch.profiler``):
    device busy share and top kernels at B = 1, then device ops and
    device time per iteration and the busy share of the fleet at B = 8,
    whose window must show one launch of each of the port's device
    kernels per fleet iteration (a profiler that records nothing prints
    "not measured" instead).
-16. report — the ``kernels`` JSON line (each kernel's launches on the main
+17. report — the ``kernels`` JSON line (each kernel's launches on the main
    path, under ``paths`` on every path driven with the counters set to 0
    before and read after, and under ``paper`` the capacity that phase
    13 ran and its launches, ms and bound there), the card's line, and last
@@ -145,6 +161,17 @@ SINGLE_CHUNKS = 8      # chunks of 256 signals of the single session
 ANN_ITERS = 128        # each ANN session at the default RunSpec
 INDEXED_CHUNKS = 2     # chunks of 256 signals of the indexed session
 PAPER_ITERS = 512      # the paper's configuration (capacity 32768)
+# the serve phase: slots, slice (one fused superstep), fleet-job and
+# paper-job iterations, the single job's chunks of SERVE_CHUNK signals
+SERVE_SLOTS, SERVE_SLICE = 4, 64
+SERVE_ITERS, SERVE_PAPER_ITERS = 256, 128
+SERVE_CHUNK, SERVE_CHUNKS = 16, 4
+# tick -> the faults the serve phase injects; the retry of the poisoned
+# job waits out a backoff of 2 ticks, so the device loss finds it queued
+SERVE_FAULTS = {2: {"kind": "poison", "job": 1, "poison": "nan"},
+                3: {"kind": "crash_checkpoint"},
+                5: {"kind": "device_loss"}}
+SERVE_BACKOFF = 2
 STATE_FIELDS = ("w", "active", "nbr", "age", "error", "firing",
                 "threshold", "topo_state", "inconsistent_for", "n_active",
                 "signal_count", "discarded")
@@ -856,13 +883,18 @@ def phase_checkpoint():
 @contextlib.contextmanager
 def recorded(module, *names):
     """``module.<name>`` replaced, for the block, by a function that
-    records its arguments and calls the original."""
+    records its arguments and calls the original; one call is kept per
+    shapes of the tensor arguments (a server makes thousands)."""
     calls = {n: [] for n in names}
+    seen = set()
     orig = {n: getattr(module, n) for n in names}
 
     def recorder(n):
         def call(*a):
-            calls[n].append(a)
+            key = (n, *(tuple(x.shape) for x in a if hasattr(x, "shape")))
+            if key not in seen:
+                seen.add(key)
+                calls[n].append(a)
             return orig[n](*a)
         return call
     for n in names:
@@ -1287,11 +1319,157 @@ def phase_paper():
     return launches, results, st.capacity
 
 
+def check_find_winners(calls, ctx: str) -> float:
+    """Every recorded B1 call against its plain version with phase 3's
+    tolerances: ids on tie-free rows, distances within rtol=2e-4,
+    atol=1e-5. Returns the largest distance error."""
+    import torch
+    from repro_torch.kernels.find_winners import kernel as fwk
+    assert calls, f"{ctx}: find_winners was not called"
+    err = 0.0
+    for args in calls:
+        d2k, idk = fwk.find_winners_top2(*args)
+        d2p, idp = fwk.find_winners_top2_plain(*args)
+        for b in range(args[0].shape[0]):
+            ok = near_tie_free(args[0][b], args[1][b], args[2][b])
+            assert torch.equal(idk[b][ok], idp[b][ok]), \
+                f"{ctx}: find_winners ids differ"
+        torch.testing.assert_close(d2k, d2p, rtol=2e-4, atol=1e-5)
+        err = max(err, float((d2k - d2p).abs().max()))
+    return err
+
+
+def serve_jobs():
+    """The serve phase's submissions: (spec, seed) in submit order."""
+    from repro_torch import gson
+    from repro_torch.configs import soam_paper
+    fused = gson.RunSpec(variant="multi-fused", max_iterations=SERVE_ITERS)
+    multi = gson.RunSpec(variant="multi", max_iterations=SERVE_ITERS)
+    paper = soam_paper.paper_spec().replace(
+        max_iterations=SERVE_PAPER_ITERS)
+    single = gson.RunSpec(variant="single", max_iterations=SERVE_CHUNKS,
+                          check_every=2, variant_config=gson.SingleConfig(
+                              chunk=SERVE_CHUNK))
+    return ([(fused, s) for s in range(4)] + [(multi, 4), (multi, 5),
+                                               (paper, SEED), (single, SEED)])
+
+
+def phase_serve(fleet_rates):
+    """The main path, served: a ``ReconstructionServer`` on ``cuda-full``
+    runs the jobs of ``serve_jobs()`` under the faults of ``SERVE_FAULTS``.
+    Every job ends ``done``; the poisoned job retried once from its
+    pre-poison checkpoint; device loss cost no retry; every fault record
+    and warning is one the phase injected; each job equals its dedicated
+    ``Session`` (fleet jobs: state bitwise, rows equal, ``qe`` within
+    1e-6; the single job: rows equal); the kernels launched, and B1 and
+    B2 / B3 + B4 on the calls recorded inside the server equal their plain
+    versions. Ticks, wall, jobs/s, network-it/s beside phase 6's fleet,
+    checkpoint ms per tick."""
+    import shutil
+    import warnings
+
+    import torch
+    from repro_torch import gson
+    from repro_torch.kernels.find_winners import ops as fw_ops
+    from repro_torch.kernels.update_phase import ops as up_ops
+    from repro_torch.serving import ReconstructionServer
+    root = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    srv = ReconstructionServer(
+        slots=SERVE_SLOTS, slice_iters=SERVE_SLICE, checkpoint_dir=str(root),
+        backoff_ticks=SERVE_BACKOFF,
+        injector=gson.GsonFaultInjector(dict(SERVE_FAULTS)))
+    jobs = [srv.submit(spec, seed) for spec, seed in serve_jobs()]
+    faults, ckpt_s = [], [0.0]
+    fault_job, checkpoint_jobs = srv._fault_job, srv._checkpoint_jobs
+
+    def logged_fault(job, kind, detail, *, count=True):
+        faults.append((job.jid, kind, str(detail), count))
+        fault_job(job, kind, detail, count=count)
+
+    def timed_checkpoints():
+        t0 = time.perf_counter()
+        checkpoint_jobs()
+        ckpt_s[0] += time.perf_counter() - t0
+    srv._fault_job, srv._checkpoint_jobs = logged_fault, timed_checkpoints
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded(fw_ops, "find_winners_top2") as fw_calls, \
+            recorded(up_ops, "winner_lock_min", "update_accum") as up_calls, \
+            warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        srv.run(max_ticks=100)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters("serve path", tuple(counters()))
+    shutil.rmtree(root, ignore_errors=True)
+
+    # only the injected faults happened
+    assert [(j.status, j.retries) for j in jobs] == [
+        ("done", int(j.jid == 1)) for j in jobs], [
+        (j.jid, j.status, j.retries, j.error) for j in jobs]
+    assert jobs[1].error["kind"] == "unhealthy_state", jobs[1].error
+    assert [f[:2] for f in faults if f[1] != "device_loss"] == [
+        (1, "unhealthy_state")], faults
+    lost = sorted(f[0] for f in faults if f[1] == "device_loss")
+    assert lost and all(not f[3] for f in faults if f[1] == "device_loss")
+    assert all(jobs[j].retries == 0 for j in lost), lost
+    crashes = [str(w.message) for w in warned]
+    assert len(crashes) == 1 and "SimulatedCrash" in crashes[0], crashes
+
+    # each job against its dedicated Session on the card
+    worst, t_sess = 0.0, 0.0
+    for job in jobs:
+        sess = gson.Session(job.spec, seed=job.seed)
+        t1 = time.perf_counter()
+        sess.run()
+        torch.cuda.synchronize()
+        t_sess += time.perf_counter() - t1
+        if isinstance(job.session, gson.Session):
+            assert job.history == sess.stats.history, job.jid
+            assert_same_network(job.session.state, sess.state, job.history,
+                                sess.stats.history, f"serve job {job.jid}")
+            continue
+        # the last row came from the job's final wave, at its index there
+        st = job.session.network(job.history[-1]["network"])
+        worst = max(worst, assert_same_network(
+            st, sess.state, job.history, sess.stats.history,
+            f"serve job {job.jid}"))
+
+    # the kernels on calls recorded inside the server
+    err_fw = check_find_winners(fw_calls["find_winners_top2"], "serve")
+    err_up = check_update_kernels(up_calls, "serve")
+    shapes = sorted({a[1].shape[:2] for a in fw_calls["find_winners_top2"]})
+    iters = sum(j.stats.iterations for j in jobs if j.spec.variant != "single")
+    card = nvidia_smi_line()
+    log(f"serve: {len(jobs)} jobs ({SERVE_SLOTS} slots, slices of "
+        f"{SERVE_SLICE} it) in {srv.ticks} ticks, {wall:.2f} s = "
+        f"{len(jobs) / wall:.2f} jobs/s; every job done; faults "
+        f"{[f[:2] for f in faults]} (all injected: poison, one checkpoint "
+        f"crash warned, device loss free); launches {launches}  [{card}]")
+    log(f"  {len(jobs)}/{len(jobs)} jobs equal to their dedicated Sessions "
+        f"(fleet jobs: state bitwise, rows equal, qe max rel diff "
+        f"{worst:.3g}; the single job's rows equal); dedicated Sessions "
+        f"{t_sess:.2f} s in all")
+    log(f"  network-it/s {iters / wall:.1f} ({iters} fleet-job iterations "
+        f"kept, retried ones not counted) beside phase 6's fleet "
+        + ", ".join(f"{v} B=1 {r[0]:.1f} B={FLEET_B} {r[1]:.1f}"
+                    for v, r in fleet_rates.items())
+        + f"; checkpoints {1e3 * ckpt_s[0] / srv.ticks:.2f} ms per tick "
+        f"({ckpt_s[0]:.2f} s in all)  [{card}]")
+    log(f"  B1 on {len(shapes)} recorded (B, C) shapes {shapes} equal to its"
+        f" plain version (distances within {err_fw:.3g}); B2 and B3 + B4 on "
+        f"{len(up_calls['update_accum'])} recorded shapes (sums within "
+        f"{err_up:.3g})")
+    return launches
+
+
 # the cuda tests of the paths that had not run on the card before (the
 # engine shim, autotune's cache, cuda-auto in a Session, a cuda-sparse
-# fleet at B = 4), TF32's refusal by the windowed search and the grid's
-# own answer on a dense pool
-C2_TESTS = ("c2_", "tf32", "grid_on_card")
+# fleet at B = 4), TF32's refusal by the windowed search, the grid's
+# own answer on a dense pool, and a served poisoned job on the card
+C2_TESTS = ("c2_", "tf32", "grid_on_card", "serve_on_card")
 
 
 def phase_c2():
@@ -1440,6 +1618,7 @@ def main() -> int:
                  "single": phase_single(multi_rate),
                  "ann": phase_ann()}
         paths["paper"], paper, paper_capacity = phase_paper()
+        paths["serve"] = phase_serve({v: f[:2] for v, f in fleet.items()})
         phase_c2()
         phase_profile()
     except Exception:  # noqa: BLE001 — report and fail the run

@@ -51,6 +51,13 @@ import torch
 _MANIFEST = "manifest.json"
 _ARRAYS = "arrays.npz"
 
+# Fault-injection hook: called as ``_PRE_PUBLISH_HOOK(tmp, step)`` between
+# the fsynced array and manifest writes and the atomic rename.
+# ``repro_torch.gson.faults`` installs a raiser here to simulate a crash
+# mid-checkpoint — the raise leaves the ``step_*.tmp`` orphan behind
+# exactly as a real crash would. Always None in production.
+_PRE_PUBLISH_HOOK = None
+
 
 def _flatten(tree, prefix: str = "") -> list:
     """[(key, leaf)] in a fixed order, keys as ``jax.tree_util.keystr``
@@ -136,6 +143,8 @@ def _write(path: str, host: dict, step: int, extra: dict) -> str:
         json.dump(manifest, f, indent=1)
         f.flush()
         os.fsync(f.fileno())
+    if _PRE_PUBLISH_HOOK is not None:
+        _PRE_PUBLISH_HOOK(tmp, step)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)          # atomic publish

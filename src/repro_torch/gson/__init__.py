@@ -35,9 +35,19 @@ cuda-auto: per shape the fastest Update phase of the selection table
 measured on the card, ``repro_torch.gson.autotune``; ann-windowed /
 ann-grid / indexed: the approximate searches of ``repro_torch.ann`` with
 the reference Update phase, ``ann_backend`` at another recall target).
+
+Fault injection (``repro_torch.gson.faults``): ``checkpoint_crash``,
+``poison_network``, ``FaultySampler``, ``lowering_failure_backend`` and
+the serving schedule ``GsonFaultInjector``, as in the JAX package. Its
+``ElasticFleetRunner`` (device-mesh recovery) waits for ROADMAP A14.
 """
 from repro_torch.core.gson.state import GSONParams, NetworkState
 from repro_torch.core.gson.superstep import SuperstepConfig
+from repro_torch.gson.faults import (DeviceLossError, FaultySampler,
+                                     GsonFaultInjector, SimulatedCrash,
+                                     checkpoint_crash,
+                                     lowering_failure_backend,
+                                     poison_network)
 from repro_torch.gson.fleet import FleetSession, FleetSpec, run_fleet
 from repro_torch.gson.registry import (BACKENDS, MODELS, SAMPLERS, VARIANTS,
                                        Backend, ModelDef, Registry,
@@ -53,10 +63,13 @@ from repro_torch.rng import TorchDraws
 
 __all__ = [
     "BACKENDS", "DEFAULT_BBOX", "MODELS", "SAMPLERS", "VARIANTS",
-    "Backend", "FleetSession", "FleetSpec", "FusedConfig", "GSONParams",
+    "Backend", "DeviceLossError", "FaultySampler", "FleetSession",
+    "FleetSpec", "FusedConfig", "GSONParams", "GsonFaultInjector",
     "IndexedConfig", "ModelDef", "MultiConfig", "NetworkState", "Registry",
-    "RunSpec", "RunStats", "Runtime", "Session", "SingleConfig",
-    "SuperstepConfig", "TorchDraws", "VariantStrategy", "ann_backend",
-    "check_convergence", "resolve", "resolve_backend", "resolve_model",
-    "resolve_sampler", "resolve_variant", "run", "run_fleet",
+    "RunSpec", "RunStats", "Runtime", "Session", "SimulatedCrash",
+    "SingleConfig", "SuperstepConfig", "TorchDraws", "VariantStrategy",
+    "ann_backend", "check_convergence", "checkpoint_crash",
+    "lowering_failure_backend", "poison_network", "resolve",
+    "resolve_backend", "resolve_model", "resolve_sampler",
+    "resolve_variant", "run", "run_fleet",
 ]

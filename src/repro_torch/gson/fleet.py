@@ -23,8 +23,9 @@ iteration for the whole batch:
   * **health screen** — poisoned networks (non-finite state, broken
     topology invariants) are quarantined with a structured ``faults``
     record; their cohort-mates run on undisturbed. The screen runs
-    before every superstep ("device" strategies) or on the check cadence
-    ("host" strategies).
+    before every ``health_every``-th superstep ("device" strategies) or
+    on the check cadence ("host" and "scan" strategies);
+    ``health_every=0`` turns it off.
 
 ``FleetSession`` carries the ``Session`` contract: streaming history
 rows (tagged with their ``network`` index), budgeted ``run(budget)`` /
@@ -152,7 +153,7 @@ class Cohort:
     one driver of the loop: every budget, cadence and row rule of a run
     is in :meth:`tick`."""
 
-    def __init__(self, rows, draws=None):
+    def __init__(self, rows, draws=None, health_every: int = 1):
         # rows: [(global_index, spec, seed, strategy, rt), ...]
         self.members = [r[0] for r in rows]
         self.specs = [r[1] for r in rows]
@@ -185,9 +186,12 @@ class Cohort:
         # host mirrors of the per-network run status
         self.signals = np.zeros(B, np.int64)
         self.units = np.zeros(B, np.int64)
-        # quarantined networks freeze exactly like converged ones
+        # quarantined networks freeze exactly like converged ones;
+        # ``health_every`` = 0 disables the screen
+        self.health_every = health_every
         self.quarantined = np.zeros(B, bool)
         self.faults: list[dict] = []
+        self._ticks = 0
 
     @property
     def batch(self) -> int:
@@ -265,10 +269,13 @@ class Cohort:
         # screen BEFORE stepping: the structural tail washes out dangling
         # edges and recounts n_active every iteration, so corruption is
         # only visible before the next step. Device ticks are whole
-        # supersteps (screen each one); host ticks single iterations
-        # (screen on the check cadence)
-        if device_mode or (act & (self.fstate.iteration
-                                  % self.spec.check_every == 0)).any():
+        # supersteps (screen every health_every-th); host and scan ticks
+        # single iterations (screen on the check cadence)
+        due = self.health_every and (
+            self._ticks % self.health_every == 0 if device_mode else
+            (act & (self.fstate.iteration
+                    % self.spec.check_every == 0)).any())
+        if due:
             self._screen()
             act = self.active() & (budget > 0)
             if not act.any():
@@ -308,6 +315,7 @@ class Cohort:
                     self.fstate, self.probes, checked, params=self.params,
                     cfg=self.cfg)
         self._read_counts()
+        self._ticks += 1
         return steps, checked
 
 
@@ -318,14 +326,16 @@ class FleetSession:
     ``seeds``); groups networks into cohorts; streams per-network history
     rows; checkpoints/restores the whole stacked fleet. ``draws``: one
     RNG seam per network, fleet order (``None``: ``TorchDraws`` seeded as
-    each network's ``Session`` would be).
+    each network's ``Session`` would be). ``health_every``: screen every
+    that many supersteps (0: never; see :class:`Cohort`).
     """
 
     def __init__(self, fleet: FleetSpec | Sequence[RunSpec],
                  seeds: Sequence[int] | None = None, *, draws=None,
                  on_history: HistoryCallback | None = None,
                  checkpoint_dir: str | None = None,
-                 checkpoint_every: int = 0, keep: int = 3):
+                 checkpoint_every: int = 0, keep: int = 3,
+                 health_every: int = 1):
         if not isinstance(fleet, FleetSpec):
             specs = tuple(fleet)
             fleet = FleetSpec(
@@ -347,14 +357,17 @@ class FleetSession:
                                                rt))
         self.cohorts = [
             Cohort(rows,
-                   None if draws is None else [draws[r[0]] for r in rows])
+                   None if draws is None else [draws[r[0]] for r in rows],
+                   health_every)
             for rows in groups.values()]
         self._where: dict[int, tuple[Cohort, int]] = {}
         for c in self.cohorts:
             for local, i in enumerate(c.members):
                 self._where[i] = (c, local)
         self._stats = [RunStats() for _ in range(fleet.batch)]
-        self._on_history = on_history
+        self._callbacks: list[HistoryCallback] = []
+        if on_history is not None:
+            self._callbacks.append(on_history)
         self.checkpoint_every = checkpoint_every
         self._last_ckpt = -1
         self._mgr = (ckpt.CheckpointManager(checkpoint_dir, keep=keep)
@@ -415,6 +428,16 @@ class FleetSession:
         out.sort(key=lambda f: f["network"])
         return out
 
+    def active_network(self, i: int) -> bool:
+        """More work to do for network i? (``Session.active``, indexed)"""
+        self._start()
+        c, local = self._where[i]
+        return bool(c.active()[local])
+
+    def add_callback(self, f: HistoryCallback) -> None:
+        """Stream every later history row to ``f`` as well."""
+        self._callbacks.append(f)
+
     def network(self, i: int):
         """The i-th network's current (unbatched) ``NetworkState``."""
         self._start()
@@ -442,8 +465,8 @@ class FleetSession:
         if c.converged[local]:
             st.converged = True
             st.quantization_error = row["qe"]
-        if self._on_history is not None:
-            self._on_history(row)
+        for f in self._callbacks:
+            f(row)
         return row
 
     def stream(self, budget: int | None = None) -> Iterator[dict]:

@@ -37,7 +37,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.gson.fleet import FleetSession, FleetSpec, RunStats
+from repro_torch.gson.fleet import (FleetSession, FleetSpec,
+                                   HistoryCallback, RunStats)
 from repro_torch.gson.spec import RunSpec
 
 __all__ = ["RunStats", "Session", "run"]
@@ -47,16 +48,20 @@ class Session(FleetSession):
     """One (spec, seed) experiment with pause / stream / checkpoint.
 
     ``draws``: the run's RNG seam; ``None`` draws from
-    ``TorchDraws(seed, spec.device, sampler)``. ``checkpoint_dir``: where
+    ``TorchDraws(seed, spec.device, sampler)``. ``on_history``: called
+    with every history row as it is emitted (``add_callback`` adds
+    more). ``checkpoint_dir``: where
     :meth:`checkpoint` writes (every ``checkpoint_every`` iterations of
     :meth:`stream` when that is > 0), keeping the newest ``keep``.
     """
 
     def __init__(self, spec: RunSpec, draws=None, *, seed: int = 0,
+                 on_history: HistoryCallback | None = None,
                  checkpoint_dir: str | None = None,
                  checkpoint_every: int = 0, keep: int = 3):
         super().__init__(FleetSpec((spec,), (seed,)),
                          draws=None if draws is None else [draws],
+                         on_history=on_history,
                          checkpoint_dir=checkpoint_dir,
                          checkpoint_every=checkpoint_every, keep=keep)
         self.spec = spec
@@ -120,6 +125,8 @@ class Session(FleetSession):
         snapshotting (an explicit ``checkpoint_every=`` overrides the
         saved cadence). ``draws``: a seam of the original run's kind
         (``None``: ``TorchDraws``), whose position is overwritten.
+        ``on_history`` (through ``kw``) receives the rows the restored
+        session emits from here on.
         """
         sess = cls(spec, draws, checkpoint_dir=checkpoint_dir, **kw)
         sess._load(step, "checkpoint_every" in kw)

@@ -28,6 +28,8 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.ann, repro_torch.ann.grid, "
         "repro_torch.ann.windowed, repro_torch.data.pointclouds, "
         "repro_torch.configs.soam_paper\n"
+        "import repro_torch.gson.faults, repro_torch.serving, "
+        "repro_torch.serving.engine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

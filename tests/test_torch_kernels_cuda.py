@@ -830,6 +830,44 @@ def test_grid_on_card_returns_its_own_answer_on_a_dense_pool(cuda_device):
             torch.testing.assert_close(out[k + 2][b], ref[k + 2][b], **D_TOL)
 
 
+@pytest.mark.cuda
+def test_serve_on_card_poisoned_job_equals_its_session(cuda_device,
+                                                       tmp_path):
+    """Four jobs served on cuda-full, one poisoned: each ends equal to its
+    dedicated Session on the card, the poisoned one after one retry from
+    its pre-poison checkpoint; the kernels ran under serving."""
+    import warnings
+
+    from repro_torch.serving import ReconstructionServer
+    spec = gson.RunSpec(variant="multi-fused", max_iterations=192)
+    wrappers = (find_winners_top2, winner_lock_min, update_accum)
+    before = [f.launches for f in wrappers]
+    srv = ReconstructionServer(
+        slots=4, slice_iters=64, checkpoint_dir=str(tmp_path),
+        injector=gson.GsonFaultInjector({1: {"kind": "poison", "job": 1}}))
+    jobs = [srv.submit(spec, seed=s) for s in range(4)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        srv.run(max_ticks=20)
+    assert all(f.launches > n for f, n in zip(wrappers, before))
+    assert [(j.status, j.retries) for j in jobs] == [
+        ("done", 0), ("done", 1), ("done", 0), ("done", 0)]
+    assert jobs[1].error["kind"] == "unhealthy_state"
+    for s, job in enumerate(jobs):
+        sess = gson.Session(spec, seed=s)
+        sess.run()
+        assert job.stats.iterations == sess.iteration == 192
+        for row, srow in zip(job.history, sess.stats.history, strict=True):
+            assert (row["iteration"], row["units"], row["signals"]) == (
+                srow["iteration"], srow["units"], srow["signals"]), s
+            assert row["qe"] == pytest.approx(srow["qe"], rel=1e-6), s
+        # the last row came from the job's final wave, at its index there
+        st = job.session.network(job.history[-1]["network"])
+        for name in _STATE_FIELDS:
+            assert torch.equal(getattr(st, name),
+                               getattr(sess.state, name)), (s, name)
+
+
 def test_non_cpu_tensors_never_take_the_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises."""
     sig = torch.zeros((1, 4, 3), device="meta")
