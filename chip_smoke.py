@@ -24,7 +24,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    which must be the ones ``DEVICE_KERNELS`` names, and the port's device
    launches in one ``update_phase_op`` call (3); and, as the floor of a
    launch-bound kernel, the time of one launch of a one-element
-   ``fill_``.
+   ``fill_``. Then B1's first launch (the packing of the active units)
+   bitwise against its plain version, its two scan regimes bitwise
+   equal, and B1 held, timed and bounded at m = 1 (the ``single``
+   path) and on a dense pool (``DENSE_ACTIVE`` of ``DENSE_C`` units
+   active, ``DENSE_M`` signals).
 4. main path — ``Session(RunSpec())`` (variant ``multi``) and
    ``variant="multi-fused"`` at the full default geometry through the
    ``cuda-full`` backend, with every launch counter set to 0 before and
@@ -122,9 +126,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    "not measured" instead).
 17. report — the ``kernels`` JSON line (each kernel's launches on the main
    path, under ``paths`` on every path driven with the counters set to 0
-   before and read after, and under ``paper`` the capacity that phase
-   13 ran and its launches, ms and bound there), the card's line, and last
-   ``{"ok": true, "device": {...}}``.
+   before and read after, under ``paper`` the capacity that phase
+   13 ran and its launches, ms and bound there, and for B1 under
+   ``shapes`` phase 3's m = 1 and dense-pool figures), the card's line,
+   and last ``{"ok": true, "device": {...}}``.
 
 It needs ``src/repro_torch`` beside it and a CUDA device; without
 either it exits nonzero before printing any result. Long output goes to
@@ -177,12 +182,14 @@ STATE_FIELDS = ("w", "active", "nbr", "age", "error", "firing",
                 "signal_count", "discarded")
 GATE = dict(capacity=768, iterations=1500, jax_chi=2, jax_units=94,
             jax_qe=0.02538)
+# B1 on a dense pool: a converged network at the paper's capacity
+DENSE_C, DENSE_ACTIVE, DENSE_M = 32768, 16384, 8192
 
 # The device kernels that one call of each wrapper launches, by their
 # names in the CUDA sources; the profile phase sums the port's kernels
 # over these names.
 DEVICE_KERNELS = {
-    "find_winners": ("find_winners_kernel",),
+    "find_winners": ("fw_compact_kernel", "fw_scan_kernel"),
     "winner_lock": ("lock_tile_kernel",),
     "update_accum": ("owner_scatter_kernel", "accum_group_kernel"),
 }
@@ -313,9 +320,80 @@ def grown_pool(seed: int):
 
 
 def phase_kernels():
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes;
+    B1 also at m = 1 and on a dense pool."""
     state, params = grown_pool(SEED)
-    return hold_kernels(state, params, "kernels")
+    results = hold_kernels(state, params, "kernels")
+    results["find_winners"]["shapes"] = hold_find_winners_shapes(state)
+    return results
+
+
+def hold_find_winners_shapes(state) -> dict:
+    """B1's first launch (the packing of the active units) against its
+    plain version bitwise, its two scan regimes against each other, and
+    B1 at two more shapes against its plain version with phase 3's
+    tolerances: m = 1 on ``state``'s pool (the ``single`` path) and M =
+    DENSE_M signals on a pool of DENSE_C sphere points with DENSE_ACTIVE
+    active (a converged pool at the paper's capacity). Times and bounds
+    of each."""
+    import torch
+    from repro_torch.core.gson.sampling import make_sampler
+    from repro_torch.kernels.find_winners import kernel as fwk
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    sphere = make_sampler("sphere")
+    sig = sphere(g, DENSE_M)[None].contiguous()
+    dense_act = torch.zeros((1, DENSE_C), dtype=torch.bool, device=dev)
+    dense_act[0, torch.randperm(DENSE_C, generator=g, device=dev)
+              [:DENSE_ACTIVE]] = True
+    pools = {"m1": (sig[:, :1].contiguous(), state.w[None].contiguous(),
+                    state.active[None].contiguous()),
+             "dense": (sig, sphere(g, DENSE_C)[None].contiguous(),
+                       dense_act)}
+    out = {}
+    for name, args in pools.items():
+        x, w, act = args
+        M, D = x.shape[1:]
+        C = w.shape[1]
+        packed, ids, count = fwk.compact_active(w, act)
+        pp, ip, cp = fwk.compact_active_plain(w, act)
+        n = int(cp[0])
+        assert torch.equal(count, cp) and torch.equal(ids[0, :n], ip[0, :n]) \
+            and torch.equal(packed[0, :n], pp[0, :n]), \
+            f"find_winners packing differs ({name})"
+        d2k, idk = fwk.find_winners_top2(*args)
+        d2k2, idk2 = fwk.find_winners_top2(*args)
+        d2p, idp = fwk.find_winners_top2_plain(*args)
+        assert torch.equal(d2k, d2k2) and torch.equal(idk, idk2), \
+            f"find_winners not repeatable ({name})"
+        ok = near_tie_free(x[0], w[0], act[0])
+        assert torch.equal(idk[0][ok], idp[0][ok]), \
+            f"find_winners ids differ ({name})"
+        torch.testing.assert_close(d2k, d2p, rtol=2e-4, atol=1e-5)
+        scan = fwk.regime(1, M)
+        other = [r for r in fwk.REGIMES if r != scan][0]
+        d2o, ido = fwk.find_winners_top2(*args, scan=other)
+        assert torch.equal(d2o, d2k) and torch.equal(ido, idk), \
+            f"find_winners regimes differ ({name})"
+        nbytes = (M * D + n * D) * 4 + C + M * 2 * 8
+        b, by = bound_ms(nbytes, M * n * (2 * D + 2))
+        r = dict(M=M, C=C, n_active=n, regime=scan,
+                 ms=device_ms(lambda a=args: fwk.find_winners_top2(*a), 50),
+                 other_regime_ms=device_ms(
+                     lambda a=args, o=other: fwk.find_winners_top2(*a, scan=o),
+                     50),
+                 plain_ms=device_ms(
+                     lambda a=args: fwk.find_winners_top2_plain(*a), 10),
+                 bound_ms=b, bound_by=by,
+                 max_abs_err=float((d2k - d2p).abs().max()))
+        out[name] = r
+        log(f"  find_winners {name} (M={M}, {n} active of C={C}): kernel "
+            f"{r['ms']:.4f} ms ({scan}; {other} {r['other_regime_ms']:.4f}) "
+            f" plain {r['plain_ms']:.4f} ms  bound {b:.5f} ms ({by})  "
+            f"max|err| {r['max_abs_err']:.3g}  ids equal on "
+            f"{int(ok.sum())}/{M} tie-free rows; packing bitwise, both "
+            f"regimes bitwise equal")
+    return out
 
 
 def hold_kernels(state, params, tag: str):
@@ -1643,6 +1721,7 @@ def main() -> int:
         "bound_ms": r["bound"], "bound_by": r["by"],
         "library_ms": r["library_ms"],
         "paths": {path: n.get(name, 0) for path, n in paths.items()},
+        **({"shapes": r["shapes"]} if "shapes" in r else {}),
         "paper": {"capacity": paper_capacity, "launches": paths["paper"][name],
                   "ms": paper[name]["ms"], "plain_ms": paper[name]["plain_ms"],
                   "bound_ms": paper[name]["bound"],

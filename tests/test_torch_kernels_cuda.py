@@ -36,8 +36,10 @@ from repro_torch.core.gson.sampling import make_sampler
 from repro_torch.core.gson.state import GSONParams, init_state, stack_states
 from repro_torch.gson import autotune
 from repro_torch.kernels import _build
-from repro_torch.kernels.find_winners import (find_winners_top2,
-                                              find_winners_top2_plain)
+from repro_torch.kernels.find_winners import (compact_active,
+                                              compact_active_plain,
+                                              find_winners_top2,
+                                              find_winners_top2_plain, regime)
 from repro_torch.kernels.update_phase import (BIG_PRIO, edge_age_plain,
                                               update_accum,
                                               update_accum_plain,
@@ -78,7 +80,9 @@ def near_tie_free(sig, w, active, eps=1e-4):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,m,c,d", [(1, 8192, 4096, 3), (1, 513, 1000, 3),
-                                     (3, 100, 700, 5), (1, 7, 2, 3)])
+                                     (3, 100, 700, 5), (1, 7, 2, 3),
+                                     (8, 8192, 4096, 3), (2, 2048, 32768, 3),
+                                     (2, 300, 2000, 8), (1, 64, 12, 1)])
 def test_find_winners_kernel_matches_plain_version(cuda_device, B, m, c, d):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     sig = torch.randn((B, m, d), generator=g, device=cuda_device)
@@ -97,6 +101,10 @@ def test_find_winners_kernel_matches_plain_version(cuda_device, B, m, c, d):
         ok = near_tie_free(sig[b], w[b], act[b])
         assert ok.float().mean() > 0.9
         assert torch.equal(idk[b][ok], idp[b][ok])
+    # the other regime gives the same answer, bitwise
+    other = "few" if regime(B, m) == "many" else "many"
+    d2o, ido = find_winners_top2(sig, w, act, scan=other)
+    assert torch.equal(d2o, d2k) and torch.equal(ido, idk)
 
 
 @pytest.mark.cuda
@@ -109,27 +117,115 @@ def test_find_winners_ties_go_to_the_lowest_id(cuda_device):
     assert (ids[0] == torch.tensor([7, 8], device=cuda_device)).all()
 
 
+def _sparse_cases():
+    """(m, C, n_active): the main path's buffer on a pool of 4096 slots,
+    then the few-signal shapes at every pool size the port runs, from
+    empty to full."""
+    cases = [(8192, 4096, n) for n in (0, 1, 2, 300)]
+    for m in (1, 2, 31, 33):
+        for c in (2, 4096, 32768):
+            cases += [(m, c, n) for n in dict.fromkeys((0, 1, 2, 300, c))
+                      if n <= c]
+    return cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_active", [0, 1, 2, 300])
-def test_find_winners_kernel_on_sparse_pools(cuda_device, n_active):
-    """Pools of 4096 slots with few active units, scattered: the kernel
-    scans only the active ones, and every unit when fewer than two are
-    active, where an inactive unit (+1e30) fills the top-2."""
-    g = torch.Generator(device=cuda_device).manual_seed(n_active)
-    sig = torch.randn((1, 8192, 3), generator=g, device=cuda_device)
-    w = torch.randn((1, 4096, 3), generator=g, device=cuda_device)
-    act = torch.zeros((1, 4096), dtype=torch.bool, device=cuda_device)
-    where = torch.randperm(4096, generator=g, device=cuda_device)[:n_active]
+@pytest.mark.parametrize("scan", ["many", "few"])
+@pytest.mark.parametrize("m,c,n_active", _sparse_cases())
+def test_find_winners_kernel_on_sparse_pools(cuda_device, m, c, n_active,
+                                             scan):
+    """Pools with few active units, scattered: the kernel scans only the
+    active ones, and every unit when fewer than two are active, where an
+    inactive unit (+1e30) fills the top-2. Both regimes."""
+    g = torch.Generator(device=cuda_device).manual_seed(n_active + c + m)
+    sig = torch.randn((1, m, 3), generator=g, device=cuda_device)
+    w = torch.randn((1, c, 3), generator=g, device=cuda_device)
+    act = torch.zeros((1, c), dtype=torch.bool, device=cuda_device)
+    where = torch.randperm(c, generator=g, device=cuda_device)[:n_active]
     act[0, where] = True
-    d2k, idk = find_winners_top2(sig, w, act)
+    d2k, idk = find_winners_top2(sig, w, act, scan=scan)
+    d2k2, idk2 = find_winners_top2(sig, w, act, scan=scan)
     d2p, idp = find_winners_top2_plain(sig, w, act)
+    assert torch.equal(d2k, d2k2) and torch.equal(idk, idk2)
     torch.testing.assert_close(d2k, d2p, **D_TOL)
     ok = near_tie_free(sig[0], w[0], act[0])
     if n_active < 2:
         assert torch.equal(idk, idp)
     else:
-        assert ok.float().mean() > 0.9
+        if m > 2:
+            assert ok.float().mean() > 0.9
         assert torch.equal(idk[0][ok], idp[0][ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["many", "few"])
+@pytest.mark.parametrize("m", [1, 33, 8192])
+def test_find_winners_kernel_on_fleets_of_unequal_pools(cuda_device, m,
+                                                        scan):
+    """B = 8 networks with 0 to 4096 active units of 4096 in one call:
+    each network is packed and scanned by its own count."""
+    counts = [0, 1, 2, 3, 300, 1000, 4095, 4096]
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    sig = torch.randn((8, m, 3), generator=g, device=cuda_device)
+    w = torch.randn((8, 4096, 3), generator=g, device=cuda_device)
+    act = torch.zeros((8, 4096), dtype=torch.bool, device=cuda_device)
+    for b, n in enumerate(counts):
+        pick = torch.randperm(4096, generator=g, device=cuda_device)[:n]
+        act[b, pick] = True
+    d2k, idk = find_winners_top2(sig, w, act, scan=scan)
+    d2p, idp = find_winners_top2_plain(sig, w, act)
+    torch.testing.assert_close(d2k, d2p, **D_TOL)
+    for b, n in enumerate(counts):
+        if n < 2:
+            assert torch.equal(idk[b], idp[b])
+            continue
+        ok = near_tie_free(sig[b], w[b], act[b])
+        assert torch.equal(idk[b][ok], idp[b][ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["many", "few"])
+@pytest.mark.parametrize("m", [1, 33])
+def test_find_winners_ties_across_unit_splits(cuda_device, m, scan):
+    """Equidistant nearest units far apart in a full pool of 32768 (other
+    partitions, other staged tiles): the two lowest ids win, whichever
+    threads scanned them."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    sig = torch.zeros((1, m, 3), device=cuda_device)
+    w = torch.randn((1, 32768, 3), generator=g, device=cuda_device)
+    w = 2.0 * w / w.norm(dim=-1, keepdim=True)     # d2 about 4
+    tie = [31000, 20000, 5000, 1500, 777, 2049, 30001]
+    unit = torch.eye(3, device=cuda_device)
+    for k, c in enumerate(tie):                     # |w| = 1, d2 = 1
+        w[0, c] = unit[k % 3] * (1 if k % 2 else -1)
+    act = torch.ones((1, 32768), dtype=torch.bool, device=cuda_device)
+    d2, ids = find_winners_top2(sig, w, act, scan=scan)
+    assert (ids[0] == torch.tensor([777, 1500], device=cuda_device)).all()
+    assert (d2 == 1.0).all()
+    act[0, 777] = False
+    _, ids = find_winners_top2(sig, w, act, scan=scan)
+    assert (ids[0] == torch.tensor([1500, 2049], device=cuda_device)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,c,d,frac", [(1, 4096, 3, 0.07), (1, 32768, 3, 0.5),
+                                        (3, 1000, 5, 0.7), (2, 2, 3, 0.5),
+                                        (1, 65536, 8, 0.6), (2, 7, 1, 1.0),
+                                        (4, 4096, 4, 0.0)])
+def test_compaction_kernel_matches_plain_version(cuda_device, B, c, d, frac):
+    """The first launch's packed rows, ids and counts equal
+    compact_active_plain's bitwise (rows past the count are not
+    written)."""
+    g = torch.Generator(device=cuda_device).manual_seed(c + d)
+    w = torch.randn((B, c, d), generator=g, device=cuda_device)
+    act = torch.rand((B, c), generator=g, device=cuda_device) < frac
+    packed, ids, count = compact_active(w, act)
+    pp, ip, cp = compact_active_plain(w, act)
+    assert torch.equal(count, cp)
+    for b in range(B):
+        n = int(cp[b])
+        assert torch.equal(ids[b, :n], ip[b, :n])
+        assert torch.equal(packed[b, :n], pp[b, :n])
 
 
 def _pool(dev, model="soam", capacity=1024, max_deg=16, iters=60, m=256,
