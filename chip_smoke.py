@@ -112,19 +112,34 @@ Phases, each of which fails the run (nonzero exit, no result line):
    recorded inside the server (one per shape) equal their plain versions
    with phase 3's tolerances. Ticks, wall, jobs/s, network-it/s beside
    phase 6's fleet, checkpoint ms per tick, beside the card's line.
-15. c2 — the ``cuda`` tests of the paths that had not run on the card
+15. mesh — device meshes (``MeshSpec`` on ``torch.distributed``, one
+   process per rank, ``run_world``): a world of one NCCL rank on
+   ``cuda`` runs a ``Session`` on a signal mesh and a B = ``MESH_B``
+   fleet on a network mesh, each equal to its unsharded run (state
+   bitwise, rows equal); then two gloo ranks that both name ``cuda:0``
+   run the signal-sharded step at m = ``MESH_M`` and the
+   network-partitioned Find Winners (each bitwise the unsharded one on
+   both ranks), a B = ``MESH_B`` network-sharded fleet (equal to its
+   sessions), ``ElasticFleetRunner`` losing pod 1 (equal to the run with
+   no fault; rank 1 leaves) and a served wave whose ``device_loss``
+   shrinks the mesh to one rank (every job done, no retry, the stats of
+   the server with no mesh); B1 on the mesh shapes against its plain
+   version. Each rank's launch counters are set to 0 before its mesh
+   runs and read after: B1, B2 and B3 + B4 launch on every rank. Two
+   ranks on one card measure correctness and host overhead, not scaling.
+16. c2 — the ``cuda`` tests of the paths that had not run on the card
    (``GSONEngine.run``, ``autotune()``'s cache, ``cuda-auto`` in a
    ``Session``, a ``cuda-sparse`` fleet at B = 4), the windowed
    search's refusal of TF32, the grid search's own answer on a dense
    pool (the guard passes, the ids are the exhaustive search's) and a
    served poisoned job on the card, run by pytest in a child process.
-16. profile — where the main path's time goes (``torch.profiler``):
+17. profile — where the main path's time goes (``torch.profiler``):
    device busy share and top kernels at B = 1, then device ops and
    device time per iteration and the busy share of the fleet at B = 8,
    whose window must show one launch of each of the port's device
    kernels per fleet iteration (a profiler that records nothing prints
    "not measured" instead).
-17. report — the ``kernels`` JSON line (each kernel's launches on the main
+18. report — the ``kernels`` JSON line (each kernel's launches on the main
    path, under ``paths`` on every path driven with the counters set to 0
    before and read after, under ``paper`` the capacity that phase
    13 ran and its launches, ms and bound there, and for B1 under
@@ -177,6 +192,14 @@ SERVE_FAULTS = {2: {"kind": "poison", "job": 1, "poison": "nan"},
                 3: {"kind": "crash_checkpoint"},
                 5: {"kind": "device_loss"}}
 SERVE_BACKOFF = 2
+# the mesh phase: iterations of each run (one fused superstep), the fleet,
+# the signal-sharded step's buffer; the elastic fleet and the served jobs
+# (iterations, ticks of ELASTIC_TICK) and their faults
+MESH_ITERS, MESH_B, MESH_M = 64, 8, 8192
+ELASTIC_B, ELASTIC_ITERS, ELASTIC_TICK = 4, 48, 16
+ELASTIC_LOST = {1: ["pod1_down"]}
+MESH_SERVE_JOBS = 4
+MESH_SERVE_FAULTS = {1: {"kind": "device_loss", "survivors": 1}}
 STATE_FIELDS = ("w", "active", "nbr", "age", "error", "firing",
                 "threshold", "topo_state", "inconsistent_for", "n_active",
                 "signal_count", "discarded")
@@ -1543,6 +1566,219 @@ def phase_serve(fleet_rates):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: worlds of torch.distributed ranks, each a process of its
+# own (every function below with a ``rank`` runs in a spawned rank)
+
+MESH_KERNELS = ("find_winners", "winner_lock", "update_accum")
+
+
+def _mesh_rank_setup():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def mesh_nccl_world(rank: int) -> dict:
+    """One NCCL rank on ``cuda`` (= ``cuda:LOCAL_RANK``, card 0): a
+    ``Session`` on a signal mesh and a B = MESH_B fleet on a network mesh,
+    launches counted, then each against its unsharded run."""
+    import torch
+    from repro_torch import gson
+    _mesh_rank_setup()
+    spec = gson.RunSpec(variant="multi-fused", max_iterations=MESH_ITERS)
+    zero_counters()
+    t0 = time.perf_counter()
+    sess = gson.Session(spec.replace(mesh=gson.MeshSpec(axis="signal")),
+                        seed=SEED)
+    sess.run()
+    fleet = gson.FleetSession(gson.FleetSpec.broadcast(
+        spec, seeds=range(MESH_B), mesh=gson.MeshSpec(axis="network")))
+    fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(f"mesh path (nccl rank {rank})", MESH_KERNELS)
+    ref = gson.Session(spec, seed=SEED)
+    ref.run()
+    assert_same_network(sess.state, ref.state, sess.stats.history,
+                        ref.stats.history, "nccl signal-mesh Session")
+    plain = gson.FleetSession(gson.FleetSpec.broadcast(spec,
+                                                       seeds=range(MESH_B)))
+    plain.run()
+    for i in range(MESH_B):
+        assert_same_network(fleet.network(i), plain.network(i),
+                            fleet.stats[i].history, plain.stats[i].history,
+                            f"nccl network-mesh fleet network {i}")
+    return {"launches": launches, "wall": wall,
+            "device": str(sess.cohorts[0].device),
+            "backend": torch.distributed.get_backend()}
+
+
+def mesh_gloo_world(rank: int, root: str) -> dict:
+    """Two gloo ranks that both name ``cuda:0``: the plain backend's
+    Session on a signal mesh (the ranks hold one network), the
+    signal-sharded step at m = MESH_M, the network-partitioned B1, a
+    network-sharded fleet,
+    ``ElasticFleetRunner`` losing a pod and a served wave shrunk by a
+    device loss, launches counted; then each against its unsharded run
+    (B1 on the recorded mesh shapes against its plain version)."""
+    import torch
+    from repro_torch import gson
+    from repro_torch.core.gson import distributed as dist_core
+    from repro_torch.core.gson.multi import multi_signal_step
+    from repro_torch.ft.elastic import FailureInjector
+    from repro_torch.kernels.find_winners import cuda_find_winners
+    from repro_torch.kernels.find_winners import ops as fw_ops
+    from repro_torch.kernels.update_phase import update_phase_op
+    from repro_torch.serving import ReconstructionServer
+    _mesh_rank_setup()
+    spec = gson.RunSpec(variant="multi-fused", max_iterations=MESH_ITERS,
+                        device="cuda:0")
+    dev = spec.device
+    signal = gson.MeshSpec(axis="signal")
+    group = signal.build()
+    # a pool grown by the plain backend on the signal mesh: its replicated
+    # Update phase sums in an order fixed by the index on the card, so
+    # both ranks must hold one network
+    grow = gson.Session(spec.replace(backend="reference", mesh=signal),
+                        seed=SEED)
+    grow.run()
+    st = grow.state
+    grown = [None, None]
+    torch.distributed.all_gather_object(
+        grown, {f: getattr(st, f).cpu() for f in STATE_FIELDS})
+    for name in STATE_FIELDS:
+        assert torch.equal(grown[0][name], grown[1][name]), \
+            f"the plain backend's signal-mesh run: {name} differs " \
+            f"between the ranks"
+    params = grow.cohorts[0].params
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sig = gson.resolve_sampler("sphere")(g, MESH_M)
+    prio = torch.randperm(MESH_M, generator=g, device=dev, dtype=torch.int32)
+    network = gson.MeshSpec(axis="network")
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded(fw_ops, "find_winners_top2") as fw_calls:
+        step = dist_core.make_distributed_step(group, params, "data",
+                                               cuda_find_winners)
+        stepped = step(st, sig, prio, update_phase=update_phase_op)
+        fw_net = dist_core.network_parallel_find_winners(
+            group, cuda_find_winners)(sig, st.w, st.active)
+        fleet = gson.FleetSession(gson.FleetSpec.broadcast(
+            spec, seeds=range(MESH_B), mesh=network))
+        fleet.run()
+        fleet_nets = [(s, t.history) for s, t in fleet.results()]
+        elastic = gson.FleetSpec.broadcast(
+            spec.replace(max_iterations=ELASTIC_ITERS),
+            seeds=range(ELASTIC_B), mesh=network)
+        s0 = gson.ElasticFleetRunner(elastic, f"{root}/e0",
+                                     tick_iters=ELASTIC_TICK).run()
+        nets0 = [s for s, _ in s0.results()]
+        r1 = gson.ElasticFleetRunner(
+            elastic, f"{root}/e1", tick_iters=ELASTIC_TICK,
+            injector=FailureInjector(dict(ELASTIC_LOST)))
+        s1 = r1.run()
+        srv = ReconstructionServer(
+            slots=MESH_SERVE_JOBS, slice_iters=ELASTIC_TICK,
+            checkpoint_dir=f"{root}/srv", mesh=network,
+            injector=gson.GsonFaultInjector(dict(MESH_SERVE_FAULTS)))
+        jobs = [srv.submit(spec.replace(max_iterations=ELASTIC_ITERS), s)
+                for s in range(MESH_SERVE_JOBS)]
+        srv.run(max_ticks=50)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(f"mesh path (gloo rank {rank})", MESH_KERNELS)
+
+    # against the unsharded runs, on this rank; the replicated Update
+    # phase is the same on both ranks
+    want = multi_signal_step(st, sig, params, prio, refresh_states=False,
+                             find_winners=cuda_find_winners,
+                             update_phase=update_phase_op)
+    both = [None, None]
+    torch.distributed.all_gather_object(
+        both, {f: getattr(stepped, f).cpu() for f in STATE_FIELDS})
+    for name in STATE_FIELDS:
+        assert torch.equal(getattr(stepped, name), getattr(want, name)), \
+            f"rank {rank}: the signal-sharded step's {name} differs"
+        assert torch.equal(both[0][name], both[1][name]), \
+            f"the signal-sharded step's {name} differs between the ranks"
+    for a, b in zip(fw_net, cuda_find_winners(sig, st.w, st.active)):
+        assert torch.equal(a, b), f"rank {rank}: network-partitioned B1"
+    shapes = sorted({tuple(a[1].shape[:2]) + (a[0].shape[1],)
+                     for a in fw_calls["find_winners_top2"]})
+    err = check_find_winners(fw_calls["find_winners_top2"],
+                             f"mesh rank {rank}")
+    per = MESH_B // 2
+    for i in range(rank * per, (rank + 1) * per):
+        sess = gson.Session(spec, seed=i)
+        sess.run()
+        assert_same_network(fleet_nets[i][0], sess.state, fleet_nets[i][1],
+                            sess.stats.history, f"mesh fleet network {i}")
+    assert (s1 is None) == (rank == 1) and r1.fspec.mesh.ndev() == 1
+    assert [e["event"] for e in r1.log] == ["restart"], r1.log
+    assert srv.mesh.ndev() == 1 and srv.left == (rank == 1)
+    if rank == 0:
+        for i, (a, (b, _)) in enumerate(zip(nets0, s1.results())):
+            for name in STATE_FIELDS:
+                assert torch.equal(getattr(a, name), getattr(b, name)), \
+                    f"elastic network {i}: {name} differs from no fault"
+        ref = ReconstructionServer(slots=MESH_SERVE_JOBS,
+                                   slice_iters=ELASTIC_TICK)
+        refs = [ref.submit(j.spec, j.seed) for j in jobs]
+        ref.run(max_ticks=50)
+        for j, r in zip(jobs, refs):
+            assert (j.status, j.retries, j.error["kind"]) == (
+                "done", 0, "device_loss"), (j.jid, j.status, j.error)
+            assert (j.stats.iterations, j.stats.units, j.stats.signals) == (
+                r.stats.iterations, r.stats.units, r.stats.signals), j.jid
+    return {"launches": launches, "wall": wall, "shapes": shapes,
+            "err": err, "restore_s": r1.log[0]["restore_s"]}
+
+
+def phase_mesh():
+    """Device meshes (``MeshSpec`` on ``torch.distributed``): a world of
+    one NCCL rank, then two gloo ranks on the one card. Two ranks on one
+    card check correctness and host overhead, not scaling. Returns the
+    launches of each rank's mesh path."""
+    import shutil
+
+    from repro_torch.core.gson.distributed import run_world
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    (nccl,) = run_world(mesh_nccl_world, 1, backend="nccl", timeout_s=300)
+    t_nccl = time.perf_counter() - t0
+    log(f"mesh nccl: 1 rank on {nccl['device']} ({nccl['backend']}), world "
+        f"{t_nccl:.1f} s (mesh runs {nccl['wall']:.2f} s): a signal-mesh "
+        f"Session and a B={MESH_B} network-mesh fleet ({MESH_ITERS} it) "
+        f"equal to the unsharded runs (state bitwise, rows equal); "
+        f"launches {nccl['launches']}  [{card}]")
+    root = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = run_world(mesh_gloo_world, 2, (str(root),), timeout_s=400)
+    t_gloo = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"mesh gloo: 2 ranks on cuda:0, world {t_gloo:.1f} s (mesh runs "
+        + ", ".join(f"rank {r} {x['wall']:.2f} s" for r, x in
+                    enumerate(ranks))
+        + f"): the plain backend's signal-mesh Session ({MESH_ITERS} it) "
+        f"bitwise alike on both ranks; the signal-sharded step at "
+        f"m={MESH_M} and the "
+        f"network-partitioned B1 equal to the unsharded ones bitwise on "
+        f"both ranks; a B={MESH_B} network-sharded fleet equal to its "
+        f"sessions; ElasticFleetRunner losing pod 1 (restore "
+        f"{ranks[0]['restore_s']:.2f} s) equal to the run with no fault; a "
+        f"served wave shrunk to 1 rank by device loss, every job done "
+        f"with no retry and the stats of the server with no mesh  [{card}]")
+    for r, x in enumerate(ranks):
+        log(f"  gloo rank {r}: launches {x['launches']}; B1 on the mesh "
+            f"shapes (B, C, m) {x['shapes']} equal to its plain version "
+            f"(distances within {x['err']:.3g})")
+    return {"mesh-nccl": nccl["launches"],
+            **{f"mesh-gloo-{r}": x["launches"] for r, x in enumerate(ranks)}}
+
+
 # the cuda tests of the paths that had not run on the card before (the
 # engine shim, autotune's cache, cuda-auto in a Session, a cuda-sparse
 # fleet at B = 4), TF32's refusal by the windowed search, the grid's
@@ -1697,6 +1933,7 @@ def main() -> int:
                  "ann": phase_ann()}
         paths["paper"], paper, paper_capacity = phase_paper()
         paths["serve"] = phase_serve({v: f[:2] for v, f in fleet.items()})
+        paths.update(phase_mesh())
         phase_c2()
         phase_profile()
     except Exception:  # noqa: BLE001 — report and fail the run

@@ -1,5 +1,6 @@
 """Atomic, asynchronous checkpoints of trees of tensors (format 2 of
 ``repro.checkpoint``)."""
-from repro_torch.checkpoint.manager import CheckpointManager, restore, save
+from repro_torch.checkpoint.manager import (CheckpointManager, Rows, restore,
+                                           save)
 
-__all__ = ["CheckpointManager", "restore", "save"]
+__all__ = ["CheckpointManager", "Rows", "restore", "save"]

@@ -29,11 +29,17 @@ the two packages:
 * **Retention**: the newest ``keep`` checkpoints stay; older ones are
   deleted after a successful save.
 
+* **Elastic resharding**: arrays are stored unsharded (the logical
+  tree). ``restore(..., shardings=)`` places each leaf on the restoring
+  rank: a :class:`Rows` cuts the rank's rows out of the leaf's leading
+  axis (padding it first where the rank's layout needs placeholders) and
+  puts them on its device, so a snapshot written by 4 ranks restores
+  onto 2, 3 or 1 of them by the same code path (the counterpart of the
+  JAX manager's ``shardings=``).
+
 Leaves are tensors (saved as numpy from any device, restored onto the
 target leaf's device and dtype), numpy arrays or Python scalars; a tree
 is made of dicts, lists, tuples and dataclasses (``NetworkState``).
-Where the JAX manager re-shards a restore onto a device mesh, the port
-has no mesh yet (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -183,10 +189,16 @@ def latest(path: str, *, gc_orphans: bool = False) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(path: str, target_tree, step: int | None = None):
+def restore(path: str, target_tree, step: int | None = None,
+            shardings=None):
     """Restore into the structure of ``target_tree``: each leaf comes
     back with the target leaf's dtype, a tensor on the target tensor's
     device. Returns ``(tree, step, extra)``.
+
+    ``shardings``: a tree matching ``target_tree`` (to any depth) of
+    :class:`Rows` placements or None: each placed leaf comes back as this
+    rank's rows of it (elastic resharding). Without it, leaves come back
+    whole.
 
     Every candidate checkpoint is validated (manifest parses, the array
     file loads, leaf names/shapes/dtypes match the manifest, names and
@@ -195,13 +207,13 @@ def restore(path: str, target_tree, step: int | None = None):
     ``RuntimeWarning``; an explicit ``step`` raises.
     """
     if step is not None:
-        return _load_checked(path, step, target_tree)
+        return _load_checked(path, step, target_tree, shardings)
     candidates = valid_steps(path)
     if not candidates:
         raise FileNotFoundError(f"no checkpoint under {path}")
     for i, s in enumerate(reversed(candidates)):
         try:
-            return _load_checked(path, s, target_tree)
+            return _load_checked(path, s, target_tree, shardings)
         except Exception as e:                      # noqa: BLE001
             if i == len(candidates) - 1:
                 # every candidate failed: a structural mismatch with the
@@ -214,15 +226,63 @@ def restore(path: str, target_tree, step: int | None = None):
                 "previous checkpoint", RuntimeWarning, stacklevel=2)
 
 
-def _restored(arr: np.ndarray, tgt):
+@dataclasses.dataclass(frozen=True)
+class Rows:
+    """Where a leaf of a logical (unsharded) tree lands on restore: rows
+    ``[start, stop)`` of its leading axis, after ``pad`` copies of row 0
+    are appended to it, on ``device`` (None: the target leaf's). The
+    target leaf keeps the logical shape, which the checkpoint is checked
+    against; a tensor target may be on the ``meta`` device (shape and
+    dtype only) when the placement names a device."""
+
+    start: int
+    stop: int
+    pad: int = 0
+    device: object = None
+
+    def take(self, arr: np.ndarray) -> np.ndarray:
+        if self.pad:
+            arr = np.concatenate([arr, np.repeat(arr[:1], self.pad, 0)])
+        return arr[self.start:self.stop]
+
+
+def _placements(tree, shardings) -> list:
+    """One placement (a :class:`Rows` or None) per leaf of ``tree``, in
+    ``_flatten`` order. ``shardings`` matches ``tree`` down to any depth:
+    a ``Rows`` or None there covers every leaf below it, and a missing
+    dict key is None."""
+    if shardings is None or isinstance(shardings, Rows):
+        return [shardings] * len(_flatten(tree))
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _placements(tree[k], shardings.get(k))]
+    if isinstance(tree, (list, tuple)):
+        return [p for x, s in zip(tree, shardings, strict=True)
+                for p in _placements(x, s)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [p for f in dataclasses.fields(tree)
+                for p in _placements(getattr(tree, f.name),
+                                     getattr(shardings, f.name))]
+    raise TypeError(f"shardings: expected a Rows or None at a leaf, got "
+                    f"{type(shardings).__name__}")
+
+
+def _restored(arr: np.ndarray, tgt, place: Rows | None = None):
+    if place is not None:
+        arr = place.take(arr)
     if isinstance(tgt, torch.Tensor):
-        return torch.as_tensor(arr).to(device=tgt.device, dtype=tgt.dtype)
+        dev = (place.device if place is not None
+               and place.device is not None else tgt.device)
+        if torch.device(dev).type == "meta":
+            raise ValueError("a meta target leaf needs a Rows placement "
+                             "with a device")
+        return torch.as_tensor(arr).to(device=dev, dtype=tgt.dtype)
     if isinstance(tgt, np.ndarray):
         return arr.astype(tgt.dtype)
     return type(tgt)(arr)
 
 
-def _load_checked(path: str, step: int, target_tree):
+def _load_checked(path: str, step: int, target_tree, shardings=None):
     """Load one checkpoint, validating manifest vs arrays vs target."""
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, _MANIFEST)) as f:
@@ -249,7 +309,9 @@ def _load_checked(path: str, step: int, target_tree):
                     f"{arr.shape}/{arr.dtype}, manifest says "
                     f"{tuple(meta['shape'])}/{meta['dtype']}")
     out = []
-    for key, tgt in _flatten(target_tree):
+    for (key, tgt), place in zip(_flatten(target_tree),
+                                 _placements(target_tree, shardings),
+                                 strict=True):
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         arr = arrays[key]
@@ -257,7 +319,7 @@ def _load_checked(path: str, step: int, target_tree):
         if tuple(arr.shape) != want:
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"target {want}")
-        out.append(_restored(arr, tgt))
+        out.append(_restored(arr, tgt, place))
     tree = _unflatten(target_tree, iter(out))
     return tree, manifest["step"], manifest.get("extra", {})
 
@@ -297,9 +359,10 @@ class CheckpointManager:
         self.wait()
         return latest(self.path, gc_orphans=True)
 
-    def restore(self, target_tree, step: int | None = None):
+    def restore(self, target_tree, step: int | None = None,
+                shardings=None):
         self.wait()
-        return restore(self.path, target_tree, step)
+        return restore(self.path, target_tree, step, shardings)
 
     def _gc(self) -> None:
         _remove_orphans(self.path)

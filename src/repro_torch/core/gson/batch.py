@@ -78,10 +78,13 @@ def put(x: torch.Tensor, index: tuple, values) -> torch.Tensor:
 def add(x: torch.Tensor, index: tuple, values: torch.Tensor) -> torch.Tensor:
     """``x.at[index].add(values, mode="drop")`` per network, same index
     rule as :func:`put`, for rows of x or (row, column) pairs of a
-    (B, C, K) x. Uses ``index_add_`` over the flat rows: in index order
-    on the CPU (so each network sums in the order it would alone), with
-    float atomics (an order that varies from run to run) on a CUDA
-    tensor."""
+    (B, C, K) x. The order of the sum is fixed by the index, so two runs
+    (or two ranks that replicate one Update phase) agree bitwise:
+    ``index_add_`` in index order on the CPU (so each network sums in the
+    order it would alone), :func:`_add_sorted` on a card, where
+    ``index_add_`` would race float atomics."""
+    if x.is_cuda:
+        return _add_sorted(x, index, values)
     tail = tuple(x.shape[2:])
     ext, rows = _spare_rows(x, index[0])
     if len(index) == 1:
@@ -91,6 +94,33 @@ def add(x: torch.Tensor, index: tuple, values: torch.Tensor) -> torch.Tensor:
         ext.view(-1).index_add_(0, (rows * tail[0] + cols).reshape(-1),
                                 values.reshape(-1))
     return ext[:-1].view(x.shape)
+
+
+def _add_sorted(x: torch.Tensor, index: tuple,
+                values: torch.Tensor) -> torch.Tensor:
+    """:func:`add` through ``index_put_(accumulate=True)``, whose kernel
+    sorts the ids and sums each target's values in sequence, in the
+    sorted order. That kernel serialises a target's values, so every
+    dropped entry gets a spare target of its own: one shared spare row
+    would take most of a batch (the signals that lose the winner lock)
+    and cost milliseconds."""
+    B, C = x.shape[:2]
+    rows = index[0].long()
+    if len(index) == 1:
+        tail = tuple(x.shape[2:])
+        base, ids = x.reshape(B * C, *tail), _flat(rows, C)
+        vals = values.reshape((-1,) + tail)
+    else:
+        rows, cols = torch.broadcast_tensors(rows, index[1].long())
+        tail = ()
+        base, ids = x.reshape(-1), _flat(rows, C) * x.shape[2] + cols
+        vals = values.reshape(-1)
+    n, N = rows.numel(), base.shape[0]
+    ids = torch.where(rows.reshape(-1) < C, ids.reshape(-1),
+                      torch.arange(N, N + n, device=x.device))
+    ext = torch.cat([base, base.new_zeros((n, *tail))])
+    ext.index_put_((ids,), vals, accumulate=True)
+    return ext[:N].view(x.shape)
 
 
 def stack(tensors: list) -> torch.Tensor:

@@ -36,13 +36,23 @@ measured on the card, ``repro_torch.gson.autotune``; ann-windowed /
 ann-grid / indexed: the approximate searches of ``repro_torch.ann`` with
 the reference Update phase, ``ann_backend`` at another recall target).
 
+Distributed execution is one more declarative knob, ``MeshSpec`` (paper
+Sec. 2.5's taxonomy) over the ranks of a ``torch.distributed`` group, one
+process per device, every rank running the same code:
+``FleetSpec(..., mesh=gson.MeshSpec(axis="network"))`` shards a fleet's
+networks across the ranks, and
+``RunSpec(mesh=gson.MeshSpec(axis="signal"))`` shards one network's
+signal batch (the paper's data partitioning).
+
 Fault injection (``repro_torch.gson.faults``): ``checkpoint_crash``,
 ``poison_network``, ``FaultySampler``, ``lowering_failure_backend`` and
-the serving schedule ``GsonFaultInjector``, as in the JAX package. Its
-``ElasticFleetRunner`` (device-mesh recovery) waits for ROADMAP A14.
+the serving schedule ``GsonFaultInjector``, as in the JAX package; and
+``ElasticFleetRunner`` (``repro_torch.gson.elastic``), which shrinks a
+network-sharded fleet's mesh on a lost pod and reshard-restores it.
 """
 from repro_torch.core.gson.state import GSONParams, NetworkState
 from repro_torch.core.gson.superstep import SuperstepConfig
+from repro_torch.gson.elastic import ElasticFleetRunner
 from repro_torch.gson.faults import (DeviceLossError, FaultySampler,
                                      GsonFaultInjector, SimulatedCrash,
                                      checkpoint_crash,
@@ -54,7 +64,7 @@ from repro_torch.gson.registry import (BACKENDS, MODELS, SAMPLERS, VARIANTS,
                                        ann_backend, resolve_backend,
                                        resolve_model, resolve_sampler)
 from repro_torch.gson.session import RunStats, Session, run
-from repro_torch.gson.spec import RunSpec, resolve, resolve_variant
+from repro_torch.gson.spec import MeshSpec, RunSpec, resolve, resolve_variant
 from repro_torch.gson.variants import (DEFAULT_BBOX, FusedConfig,
                                        IndexedConfig, MultiConfig, Runtime,
                                        SingleConfig, VariantStrategy,
@@ -63,13 +73,13 @@ from repro_torch.rng import TorchDraws
 
 __all__ = [
     "BACKENDS", "DEFAULT_BBOX", "MODELS", "SAMPLERS", "VARIANTS",
-    "Backend", "DeviceLossError", "FaultySampler", "FleetSession",
-    "FleetSpec", "FusedConfig", "GSONParams", "GsonFaultInjector",
-    "IndexedConfig", "ModelDef", "MultiConfig", "NetworkState", "Registry",
-    "RunSpec", "RunStats", "Runtime", "Session", "SimulatedCrash",
-    "SingleConfig", "SuperstepConfig", "TorchDraws", "VariantStrategy",
-    "ann_backend", "check_convergence", "checkpoint_crash",
-    "lowering_failure_backend", "poison_network", "resolve",
-    "resolve_backend", "resolve_model", "resolve_sampler",
-    "resolve_variant", "run", "run_fleet",
+    "Backend", "DeviceLossError", "ElasticFleetRunner", "FaultySampler",
+    "FleetSession", "FleetSpec", "FusedConfig", "GSONParams",
+    "GsonFaultInjector", "IndexedConfig", "MeshSpec", "ModelDef",
+    "MultiConfig", "NetworkState", "Registry", "RunSpec", "RunStats",
+    "Runtime", "Session", "SimulatedCrash", "SingleConfig",
+    "SuperstepConfig", "TorchDraws", "VariantStrategy", "ann_backend",
+    "check_convergence", "checkpoint_crash", "lowering_failure_backend",
+    "poison_network", "resolve", "resolve_backend", "resolve_model",
+    "resolve_sampler", "resolve_variant", "run", "run_fleet",
 ]

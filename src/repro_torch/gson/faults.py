@@ -25,8 +25,10 @@ the one a deployment runs:
   ``failed`` with ``advance_error`` once its retries are spent.
 * **device loss** — a ``device_loss`` schedule entry retires every live
   fleet wave of a :class:`~repro_torch.serving.engine.ReconstructionServer`,
-  whose jobs retry from checkpoint free of charge. Shrinking a device
-  mesh (the JAX package's ``ElasticFleetRunner``) waits for ROADMAP A14.
+  whose jobs retry from checkpoint free of charge, on the server's mesh
+  shrunk to the event's ``survivors``; ``pod<k>_down`` events of a
+  ``repro_torch.ft.elastic.FailureInjector`` shrink the mesh of an
+  :class:`~repro_torch.gson.elastic.ElasticFleetRunner`.
 
 Schedules are plain dicts, so every test run is reproducible.
 """
@@ -94,12 +96,17 @@ def poison_network(session, i: int, kind: str = "nan") -> None:
     structural tail never repairs, since edge ops only rewrite rows of
     active winners, so it survives until a screen runs). Both are caught
     by the health screen. The cohort's tensors are copied on their own
-    device, so no other holder of them sees the poison.
+    device, so no other holder of them sees the poison. Under a mesh only
+    the rank that holds network ``i`` writes it (every rank may call).
     """
     if kind not in ("nan", "topology"):
         raise ValueError(f"unknown poison kind {kind!r} "
                          "(expected 'nan' or 'topology')")
     c, local = session._where[i]
+    if c.shard is not None:
+        rank, local = c.shard.owner(local)
+        if rank != c.shard.rank:
+            return
     nets = c.fstate.nets
     if kind == "nan":
         w = nets.w.clone()
@@ -183,9 +190,10 @@ ReconstructionServer`.
       dies mid-write (arms :func:`arm_checkpoint_crash`).
     * ``{"kind": "fail_job", "job": jid}`` — raise inside that job's
       advance (a sampler or run-loop exception surfacing to the server).
-    * ``{"kind": "device_loss"}`` — every live fleet wave dies with its
-      device; its jobs retry from checkpoint, free of charge (the
-      ``survivors`` count of a device mesh waits for ROADMAP A14).
+    * ``{"kind": "device_loss", "survivors": n}`` — every live fleet wave
+      dies with its devices; its jobs retry from checkpoint, free of
+      charge, on the server's mesh shrunk to its first ``n`` ranks (no
+      mesh: the count is not used).
 
     Events fire once (the server pops them), so post-recovery replay of
     the same tick numbers does not re-inject.

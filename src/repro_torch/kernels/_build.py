@@ -127,7 +127,8 @@ def check(name: str, t, dtype, shape: tuple, device) -> None:
 
 def launch(source: str, fn: str, tensors: list, ints: list) -> None:
     """Call ``fn(ptrs..., ints..., stream)`` of library ``source`` on the
-    current stream of the tensors' device; raise on a nonzero return."""
+    current stream of the tensors' device, with that device current;
+    raise on a nonzero return."""
     import torch
 
     lib = load(source)
@@ -136,7 +137,11 @@ def launch(source: str, fn: str, tensors: list, ints: list) -> None:
         f.argtypes = ([ctypes.c_void_p] * len(tensors)
                       + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
         f.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    rc = f(*[t.data_ptr() for t in tensors], *ints, stream)
+    dev = tensors[0].device
+    # the launch goes to the current device: make it the tensors' own, so
+    # a rank on cuda:1 never launches on cuda:0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = f(*[t.data_ptr() for t in tensors], *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {rc}")

@@ -6,8 +6,7 @@ The port's counterpart of the reconstruction half of
 with its scheduling and supervision rules. Every fleet wave and solo job
 runs on its spec's device through the port's fleets and sessions, so a
 wave on ``cuda-full`` launches the four Hopper kernels. The LM half of
-the JAX module (``ServeEngine``, ``ServeConfig``) waits for ROADMAP A15,
-the device mesh for A14.
+the JAX module (``ServeEngine``, ``ServeConfig``) waits for ROADMAP A15.
 
 A fault in a wave's advance becomes a job fault, retried from the job's
 last checkpoint on the same backend and device: nothing here swaps in
@@ -17,14 +16,18 @@ spent) instead of completing them another way.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import warnings
 from dataclasses import dataclass, field
 
+import torch.distributed as dist
+
 from repro_torch.checkpoint import manager as ckpt_mgr
+from repro_torch.core.gson import distributed as dist_core
 from repro_torch.gson import faults as gf
-from repro_torch.gson.fleet import FleetSession, FleetSpec, _no_mesh
+from repro_torch.gson.fleet import FleetSession, FleetSpec
 from repro_torch.gson.session import Session
 from repro_torch.gson.spec import resolve_variant
 
@@ -73,6 +76,19 @@ class ReconstructionServer:
     are served as one budgeted ``Session`` per slot, time-sliced beside
     the fleet waves.
 
+    ``mesh`` (a ``repro_torch.gson.MeshSpec(axis="network")``) places every
+    admitted wave on the ranks of a ``torch.distributed`` group: the
+    wave's B axis is sharded so each rank owns whole networks (cohorts pad
+    themselves when the wave does not divide the mesh), with no collective
+    per iteration and no change to any job's results. Every rank of the
+    world runs the same server loop (SPMD): job states are alike on every
+    rank, sessions of the solo path run replicated, and rank 0 alone
+    writes the snapshots (the others wait at a barrier). A stall verdict
+    is rank 0's. A fault raised on one rank alone (a sampler of a network
+    that rank holds, a kernel launch, its card's memory) travels in the
+    tick's gather: every rank raises the same ``RankFault``, so every
+    rank faults the same wave's jobs and retries them alike.
+
     **Supervision.** With ``checkpoint_dir`` set, every live job is
     snapshotted on the slice cadence (``checkpoint_every_ticks``) into its
     own ``job_<jid>/`` directory — a B = 1 fleet snapshot through
@@ -92,13 +108,16 @@ class ReconstructionServer:
     ``injector`` (a ``repro_torch.gson.faults.GsonFaultInjector``) drives
     deterministic faults for tests: poisoned state, crash mid-checkpoint,
     injected job failures, and device loss, which retires every live
-    fleet wave; its jobs retry from checkpoint free of charge.
+    fleet wave; its jobs retry from checkpoint free of charge, on a mesh
+    shrunk to the event's ``survivors`` (the first ranks of the group,
+    as the JAX server keeps the first devices; the ranks left over stop
+    serving, ``left`` is True there and ``run`` returns the jobs that
+    rank had finished).
 
     ``draws``: ``(jid, seed) -> Draws``, the RNG seam of each job's
     session (``None``: ``TorchDraws`` seeded as a dedicated
     ``Session(spec, seed=seed)`` is); a retry restored from a checkpoint
-    loads the seam's position from it. ``mesh``: only ``None`` — a
-    network-axis device mesh waits for ROADMAP A14.
+    loads the seam's position from it.
     """
 
     def __init__(self, slots: int = 4, slice_iters: int = 50,
@@ -106,7 +125,6 @@ class ReconstructionServer:
                  checkpoint_every_ticks: int = 1, max_retries: int = 2,
                  backoff_ticks: int = 1, tick_timeout_s: float | None = None,
                  injector=None, health_every: int = 1, draws=None):
-        _no_mesh(mesh)
         self.slots = slots
         self.slice_iters = slice_iters
         self.mesh = mesh
@@ -128,6 +146,7 @@ class ReconstructionServer:
         self._solo: list[ReconstructionJob] = []      # Session jobs
         self._retry: list[ReconstructionJob] = []     # faulted, in backoff
         self._mgrs: dict[int, ckpt_mgr.CheckpointManager] = {}
+        self.left = False       # shrunk out of the mesh by a device loss
 
     def submit(self, spec, seed: int = 0) -> ReconstructionJob:
         job = ReconstructionJob(self._next_jid, spec, seed)
@@ -189,26 +208,34 @@ class ReconstructionServer:
     def _checkpoint_jobs(self) -> None:
         """Per-job snapshots on the slice cadence (quarantined networks
         are never snapshotted — their last checkpoint predates the
-        poison, which is exactly what the retry restores)."""
+        poison, which is exactly what the retry restores). Under a mesh
+        each snapshot goes from the rank that holds its network to rank 0
+        alone, rank 0 writes them and the ranks meet at one barrier."""
         if self.checkpoint_dir is None or not self.checkpoint_every_ticks:
             return
         if self.ticks % self.checkpoint_every_ticks:
             return
-        for fleet, jobs in self._fleets:
-            q = fleet.quarantined
-            for i, job in enumerate(jobs):
-                if (job.status != "running" or job.session is not fleet
-                        or q[i]):
-                    continue
-
-                def save(fleet=fleet, i=i, job=job):
-                    tree, extra = fleet.network_snapshot(i)
-                    self._mgr(job.jid).save(
-                        tree, int(extra["iterations"][0]), extra)
-                self._save_warned(job, save)
-        for job in self._solo:
-            if job.status == "running" and job.session._mgr is not None:
-                self._save_warned(job, job.session.checkpoint)
+        group = None if self.mesh is None else self.mesh.build()
+        writer = group is None or dist.get_rank(group) == 0
+        try:
+            for fleet, jobs in self._fleets:
+                q = fleet.quarantined
+                for i, job in enumerate(jobs):
+                    if (job.status != "running" or job.session is not fleet
+                            or q[i]):
+                        continue
+                    tree, extra = fleet.network_snapshot(i)  # collective
+                    if writer:
+                        self._save_warned(job, lambda job=job, t=tree, e=extra:
+                                          self._mgr(job.jid).save(
+                                              t, int(e["iterations"][0]), e))
+            for job in self._solo:
+                if (writer and job.status == "running"
+                        and job.session._mgr is not None):
+                    self._save_warned(job, job.session.checkpoint)
+        finally:
+            if group is not None:
+                dist_core.barrier(group)
 
     def _inject(self) -> None:
         """Fire this tick's scheduled faults (each fires once)."""
@@ -237,8 +264,13 @@ class ReconstructionServer:
                                         ev.get("detail", "injected"))
             elif kind == "device_loss":
                 n = int(ev.get("survivors", 1))
-                # every wave dies with its device; its jobs retry from
-                # checkpoint, free
+                if self.mesh is not None:
+                    # the survivors are the first n ranks; the group is
+                    # built on every rank (collective), leaving ones too
+                    self.mesh = dataclasses.replace(self.mesh, devices=n)
+                    self.left = dist.get_rank(self.mesh.build()) < 0
+                # every wave dies with its devices; its jobs retry from
+                # checkpoint on the survivor mesh, free
                 for fleet, jobs in self._fleets:
                     for job in jobs:
                         if job.status == "running" and job.session is fleet:
@@ -289,7 +321,7 @@ class ReconstructionServer:
         have_ckpt = mgr is not None and mgr.latest() is not None
         draws = self._draws([job])
         if self._fleet_capable(job.spec):
-            fspec = FleetSpec((job.spec,), (job.seed,))
+            fspec = FleetSpec((job.spec,), (job.seed,), self.mesh)
 
             def route(row, job=job):
                 job.history.append(row)
@@ -343,7 +375,8 @@ class ReconstructionServer:
             fleet = None
             if fleet_jobs:
                 fspec = FleetSpec(tuple(j.spec for j in fleet_jobs),
-                                  tuple(j.seed for j in fleet_jobs))
+                                  tuple(j.seed for j in fleet_jobs),
+                                  self.mesh)
 
                 def route(row, jobs=fleet_jobs):
                     jobs[row["network"]].history.append(row)
@@ -372,10 +405,16 @@ class ReconstructionServer:
             self._solo.append(j)
 
     def _stalled(self, t0: float) -> str | None:
+        """The stall verdict of a slice that started at ``t0``; under a
+        mesh rank 0's, so that every rank takes the same decision
+        (collective)."""
         dt = time.perf_counter() - t0
+        out = None
         if self.tick_timeout_s is not None and dt > self.tick_timeout_s:
-            return f"slice took {dt:.2f}s > {self.tick_timeout_s:.2f}s"
-        return None
+            out = f"slice took {dt:.2f}s > {self.tick_timeout_s:.2f}s"
+        if self.mesh is None or self.tick_timeout_s is None:
+            return out
+        return dist_core.broadcast_object(self.mesh.build(), out, 0)
 
     def _finish(self, job: ReconstructionJob, stats) -> None:
         job.stats = stats
@@ -387,6 +426,8 @@ class ReconstructionServer:
         """One tick: fire scheduled faults, refill freed slots, advance
         every live wave under supervision, snapshot the survivors."""
         self._inject()
+        if self.left:
+            return
         # drop waves with no running jobs left (drained or all faulted)
         self._fleets = [(f, jobs) for f, jobs in self._fleets
                         if any(j.status == "running" and j.session is f
@@ -465,10 +506,12 @@ class ReconstructionServer:
                               else "retrying" if job in self._retry
                               else "running")
         while (self.queue or self._retry
-               or self._live_jobs()) and max_ticks > 0:
+               or self._live_jobs()) and max_ticks > 0 and not self.left:
             self.step()
             max_ticks -= 1
         out = list(self.finished)
+        if self.left:
+            return out
         for job in self.queue + self._retry + self._live_jobs():
             if not job.done:
                 job.status = "budget_exhausted"

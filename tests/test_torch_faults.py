@@ -304,6 +304,6 @@ def test_faults_api_matches_the_jax_package():
              "SimulatedCrash", "checkpoint_crash",
              "lowering_failure_backend", "poison_network"}
     assert names <= set(gson.__all__)
-    assert "ElasticFleetRunner" not in gson.__all__      # ROADMAP A14
+    assert {"ElasticFleetRunner", "MeshSpec"} <= set(gson.__all__)
     assert issubclass(gson.DeviceLossError, RuntimeError)
     assert np.all([callable(getattr(gson, n)) for n in names])

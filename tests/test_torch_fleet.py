@@ -191,12 +191,55 @@ def test_non_fleet_variant_raises():
         gson.Session(short_spec(_SequentialOnly()))
 
 
-def test_mesh_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="A14"):
+def test_mesh_rejections():
+    """What a mesh still refuses: the signal axis on a FleetSpec, a mesh
+    nested on both the fleet and a member, the network axis on a
+    RunSpec (``tests/test_torch_mesh.py`` runs the meshes)."""
+    with pytest.raises(ValueError, match="network axis"):
         gson.FleetSpec.broadcast(short_spec(), seeds=range(2),
-                                 mesh="network")
-    with pytest.raises(NotImplementedError, match="A14"):
-        gson.FleetSpec((short_spec(),), (0,), mesh="network")
+                                 mesh=gson.MeshSpec(axis="signal"))
+    with pytest.raises(ValueError, match="cannot also shard"):
+        gson.FleetSpec((short_spec(mesh=gson.MeshSpec(axis="signal")),),
+                       (0,), mesh=gson.MeshSpec(axis="network"))
+    with pytest.raises(ValueError, match="FleetSpec"):
+        gson.Session(short_spec(mesh=gson.MeshSpec(axis="network")))
+
+
+@pytest.mark.parametrize("variant", ["multi", "multi-fused"])
+def test_fleet_on_a_one_rank_mesh_equals_unsharded(tmp_path, variant):
+    """A network-sharded fleet (3 networks) and a signal-sharded Session
+    on a world of one gloo rank in this process: bitwise the unsharded
+    runs, and the sharded snapshot restores with no mesh."""
+    dist = pytest.importorskip("torch.distributed")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        spec = short_spec(variant, max_iterations=24)
+        mesh = gson.MeshSpec(axis="network")
+        sharded = gson.FleetSession(
+            gson.FleetSpec.broadcast(spec, seeds=range(3), mesh=mesh),
+            checkpoint_dir=str(tmp_path / "ck"))
+        sharded.run(budget=12)
+        sharded.checkpoint()
+        sharded.run()
+        plain = gson.FleetSession(gson.FleetSpec.broadcast(spec,
+                                                           seeds=range(3)))
+        plain.run(budget=12)
+        plain.run()
+        back = gson.FleetSession.restore(
+            gson.FleetSpec.broadcast(spec, seeds=range(3)),
+            str(tmp_path / "ck"))
+        back.run()
+        for i in range(3):
+            (a, sa), (b, sb) = sharded.result(i), plain.result(i)
+            assert_states_equal(a, b, f"{variant} network {i}")
+            assert_states_equal(back.result(i)[0], b, f"restored {i}")
+            assert rows(sa.history) == rows(sb.history)
+        sess = gson.Session(spec.replace(mesh=gson.MeshSpec(axis="signal")))
+        sess.run()
+        assert_states_equal(sess.state, plain.network(0), "signal mesh")
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -388,3 +431,30 @@ def test_convert_carries_a_jax_fleet_state(jax_fleet):
     for i in range(3):
         np.testing.assert_array_equal(
             fs.network(i).nbr.numpy(), np.asarray(jfleet.result(i)[0].nbr))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("cols", [False, True], ids=["rows", "row-col"])
+def test_sorted_add_equals_index_add(B, cols):
+    """The card's ``batch.add`` (one spare target per dropped entry, a
+    sorted sum) run on the CPU: the index-order sum within rounding, and
+    bitwise where every target takes one value."""
+    from repro_torch.core.gson import batch
+    g = torch.Generator().manual_seed(B)
+    C, K, n = 64, 8, 4096
+    x = torch.randn(B, C, K, generator=g)
+
+    def case(rows):
+        if cols:
+            return ((rows, torch.randint(0, K, rows.shape, generator=g)),
+                    torch.randn(rows.shape, generator=g))
+        return (rows,), torch.randn(*rows.shape, K, generator=g)
+
+    index, vals = case(torch.randint(0, C + 1, (B, n), generator=g))
+    torch.testing.assert_close(batch._add_sorted(x, index, vals),
+                               batch.add(x, index, vals))
+    # C drops: a permutation of C + 1 ids keeps C targets, one value each
+    index, vals = case(torch.stack([torch.randperm(C + 1, generator=g)[:C]
+                                    for _ in range(B)]))
+    assert torch.equal(batch._add_sorted(x, index, vals),
+                       batch.add(x, index, vals))

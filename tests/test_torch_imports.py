@@ -30,6 +30,8 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.configs.soam_paper\n"
         "import repro_torch.gson.faults, repro_torch.serving, "
         "repro_torch.serving.engine\n"
+        "import repro_torch.core.gson.distributed, repro_torch.ft, "
+        "repro_torch.gson.elastic\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

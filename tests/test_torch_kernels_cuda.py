@@ -876,6 +876,43 @@ def test_c2_cuda_sparse_fleet_at_b4(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cols", [False, True])
+def test_c2_batch_add_repeats_bitwise_on_card(cuda_device, cols):
+    """``batch.add`` on the card sums in an order fixed by the index: run
+    after run the same bits, and the CPU's sum within float rounding."""
+    from repro_torch.core.gson.batch import add
+    g = torch.Generator().manual_seed(0)
+    B, C, K, n = 2, 64, 8, 4096
+    x = torch.randn(B, C, K, generator=g)
+    rows = torch.randint(0, C + 1, (B, n), generator=g)     # C drops
+    if cols:
+        index = (rows, torch.randint(0, K, (B, n), generator=g))
+        vals = torch.randn(B, n, generator=g)
+    else:
+        index = (rows,)
+        vals = torch.randn(B, n, K, generator=g)
+    on_card = [add(x.to(cuda_device),
+                   tuple(i.to(cuda_device) for i in index),
+                   vals.to(cuda_device)).cpu() for _ in range(3)]
+    assert torch.equal(on_card[0], on_card[1])
+    assert torch.equal(on_card[0], on_card[2])
+    torch.testing.assert_close(on_card[0], add(x, index, vals))
+
+
+@pytest.mark.cuda
+def test_c2_reference_session_on_card_repeats_bitwise(cuda_device):
+    """The plain backend's Update phase on the card is deterministic, so
+    ranks that replicate it under a signal mesh hold one network."""
+    spec = gson.RunSpec(backend="reference", capacity=512,
+                        max_iterations=40, check_every=10)
+    runs = [gson.run(spec, seed=5) for _ in range(2)]
+    assert runs[0][1].history == runs[1][1].history
+    for name in _STATE_FIELDS:
+        assert torch.equal(getattr(runs[0][0], name),
+                           getattr(runs[1][0], name)), name
+
+
+@pytest.mark.cuda
 def test_windowed_refuses_tf32_on_card(cuda_device):
     from repro_torch import ann
     g = torch.Generator(device=cuda_device).manual_seed(0)

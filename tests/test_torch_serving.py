@@ -16,7 +16,7 @@ On the CPU, at the JAX tests' sizes (capacity 64, 20–300 iterations):
     2**(retries - 1)`` with the clock fast-forwarded, a failed wave
     construction returned to the queue front, device loss free of charge,
     a failing backend ending ``failed`` (never completed on the
-    reference), ``mesh`` waiting for ROADMAP A14;
+    reference), waves on a one-rank mesh equal to waves without one;
   * one parity run against ``repro.serving.engine.ReconstructionServer``:
     the same submissions and fault schedule (poison, crash mid-checkpoint,
     an injected job failure, device loss), the port under the JAX draws
@@ -314,9 +314,35 @@ def test_failing_backend_job_fails_and_never_completes():
     assert good.status == "done"
 
 
-def test_mesh_waits_for_a14():
-    with pytest.raises(NotImplementedError, match="A14"):
-        ReconstructionServer(mesh=object())
+def test_server_on_a_one_rank_mesh_matches_the_server_without(tmp_path):
+    """Waves placed on a one-rank gloo mesh in this process, under a
+    poison and a device loss that keeps the one survivor: the same
+    statuses, retries, stats and rows as with no mesh
+    (``tests/test_torch_elastic.py`` shrinks a 4-rank mesh)."""
+    dist = pytest.importorskip("torch.distributed")
+    faults = {1: {"kind": "poison", "job": 1},
+              3: {"kind": "device_loss", "survivors": 1}}
+
+    def serve(root, mesh):
+        srv = ReconstructionServer(
+            slots=3, slice_iters=20, checkpoint_dir=str(root), mesh=mesh,
+            injector=gson.GsonFaultInjector(copy.deepcopy(faults)))
+        jobs = [srv.submit(_spec(iters=80), seed=s) for s in range(3)]
+        srv.run(max_ticks=40)
+        return srv, [(j.status, j.retries, j.stats.iterations,
+                      j.stats.units, j.stats.signals, _rows(j.history))
+                     for j in jobs]
+
+    _, want = serve(tmp_path / "plain", None)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        srv, got = serve(tmp_path / "mesh", gson.MeshSpec(axis="network"))
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    assert [g[:2] for g in got] == [("done", 0), ("done", 1), ("done", 0)]
+    assert srv.mesh.ndev() == 1 and not srv.left
 
 
 # ---------------------------------------------------------------------------
