@@ -131,17 +131,36 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (``GSONEngine.run``, ``autotune()``'s cache, ``cuda-auto`` in a
    ``Session``, a ``cuda-sparse`` fleet at B = 4), the windowed
    search's refusal of TF32, the grid search's own answer on a dense
-   pool (the guard passes, the ids are the exhaustive search's) and a
-   served poisoned job on the card, run by pytest in a child process.
-17. profile — where the main path's time goes (``torch.profiler``):
+   pool (the guard passes, the ids are the exhaustive search's), a
+   served poisoned job on the card and the LM smoke config's
+   ``ServeEngine`` on the card against the CPU, run by pytest in a child
+   process.
+17. lm — the LM substrate, which launches none of the GSON kernels (every
+   counter set to 0 before and 0 after): ``LM_ARCH`` (qwen1.5-0.5b) at its
+   published width from random weights, a ``ServeEngine`` of
+   ``LM_BATCH`` slots serving ``LM_REQUESTS`` requests drawn as
+   ``repro_torch.launch.serve`` draws them, ``LM_MAX_TOKENS`` tokens each
+   (2 prefill waves, 62 decode steps, asserted): tokens/s, prefill ms per
+   wave and decode ms per step (CUDA events), device time, device ops and
+   busy share over ``LM_PROFILE_STEPS`` decode steps (``torch.profiler``),
+   peak device memory, and the decode step's bound (bf16 weights without
+   the embedding rows, plus the cache, over HBM's rate). Then prefill +
+   decode against the teacher-forced forward at f32 compute (rtol = atol
+   = ``LM_F32_TOL``) and at bf16 (within twice the bf16 forward's
+   distance from the f32 forward); the card against the CPU from the same
+   f32 weights (rtol = atol = ``LM_CARD_CPU_TOL``, greedy tokens equal
+   wherever the CPU's top-2 margin exceeds it); ``LM_GQA_ARCH``
+   (granite-3-2b, GQA 32/8) through the same two checks and one wave.
+   Its memory is freed before the profile phase.
+18. profile — where the main path's time goes (``torch.profiler``):
    device busy share and top kernels at B = 1, then device ops and
    device time per iteration and the busy share of the fleet at B = 8,
    whose window must show one launch of each of the port's device
    kernels per fleet iteration (a profiler that records nothing prints
    "not measured" instead).
-18. report — the ``kernels`` JSON line (each kernel's launches on the main
+19. report — the ``kernels`` JSON line (each kernel's launches on the main
    path, under ``paths`` on every path driven with the counters set to 0
-   before and read after, under ``paper`` the capacity that phase
+   before and read after (``lm`` among them, all 0), under ``paper`` the capacity that phase
    13 ran and its launches, ms and bound there, and for B1 under
    ``shapes`` phase 3's m = 1 and dense-pool figures), the card's line,
    and last ``{"ok": true, "device": {...}}``.
@@ -1779,11 +1798,25 @@ def phase_mesh():
             **{f"mesh-gloo-{r}": x["launches"] for r, x in enumerate(ranks)}}
 
 
+# the lm phase: the model served at full width, its requests and tokens,
+# the profiled decode steps; the prefill + decode check (prompts, their
+# length, decode steps), its f32 tolerance and the card-against-CPU
+# tolerance and steps; the GQA model's wave
+LM_ARCH, LM_GQA_ARCH = "qwen1.5-0.5b", "granite-3-2b"
+LM_BATCH, LM_MAX_LEN, LM_REQUESTS, LM_MAX_TOKENS = 8, 256, 16, 32
+LM_PROFILE_STEPS = 8
+LM_PROMPTS, LM_PROMPT_LEN, LM_DECODE = 2, 12, 8
+LM_F32_TOL, LM_CARD_CPU_TOL, LM_CARD_CPU_STEPS = 2e-3, 1e-3, 4
+LM_GQA_WAVE, LM_GQA_TOKENS = 8, 16
+LM_DEVICE = "cuda"
+
+
 # the cuda tests of the paths that had not run on the card before (the
 # engine shim, autotune's cache, cuda-auto in a Session, a cuda-sparse
 # fleet at B = 4), TF32's refusal by the windowed search, the grid's
-# own answer on a dense pool, and a served poisoned job on the card
-C2_TESTS = ("c2_", "tf32", "grid_on_card", "serve_on_card")
+# own answer on a dense pool, a served poisoned job on the card, and the
+# LM smoke config on the card against the CPU (ServeEngine's device paths)
+C2_TESTS = ("c2_", "tf32", "grid_on_card", "serve_on_card", "lm_serve")
 
 
 def phase_c2():
@@ -1799,6 +1832,245 @@ def phase_c2():
     tail = out.stdout.strip().splitlines()[-1:] or [out.stderr[-300:]]
     log(f"c2: pytest {' or '.join(C2_TESTS)}: {tail[0]}")
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-2000:]
+
+
+def lm_prompts(n: int, vocab: int, seed: int = 0, lo: int = 4, hi: int = 17):
+    """Prompts drawn as ``repro_torch.launch.serve`` draws them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, vocab, size=int(rng.integers(lo, hi)))
+            for _ in range(n)]
+
+
+def lm_path_check(bundle, params, device, steps: int = LM_DECODE):
+    """Prefill of ``LM_PROMPTS`` prompts of ``LM_PROMPT_LEN`` tokens, then
+    ``steps`` decode steps, beside the teacher-forced forward over the
+    whole sequence: (the logits of each step, (steps + 1, B, V) in f32;
+    the forward's logits at those positions)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(
+        2, bundle.cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN + steps)).astype(
+            np.int32)).to(device)
+    cache, logits = bundle.prefill(params, {"tokens": toks[:, :LM_PROMPT_LEN]},
+                                   max_len=LM_PROMPT_LEN + steps)
+    out = [logits.float()]
+    for j in range(steps):
+        at = LM_PROMPT_LEN + j
+        cache, logits = bundle.decode_step(params, cache, toks[:, at:at + 1])
+        out.append(logits.float())
+    ref, _ = bundle.forward(params, {"tokens": toks})
+    ref = ref[:, LM_PROMPT_LEN - 1:].float().transpose(0, 1)
+    return torch.stack(out), ref
+
+
+def lm_checks(bundle, master, tag: str) -> dict:
+    """Prefill + decode against the forward on the card, at f32 compute
+    (within ``LM_F32_TOL``) and at bf16 (within twice the distance of the
+    bf16 forward from the f32 forward: each bf16 path lies within bf16's
+    own rounding error of the exact values, so two of them lie within
+    twice that of each other)."""
+    import torch
+    from repro_torch.models.common import cast_params
+    from repro_torch.models.registry import get_bundle
+    b32 = get_bundle(bundle.cfg.replace(compute_dtype=torch.float32))
+    pd32, fwd32 = lm_path_check(b32, master, LM_DEVICE)
+    err32 = float((pd32 - fwd32).abs().max())
+    assert torch.isfinite(pd32).all() and torch.allclose(
+        pd32, fwd32, rtol=LM_F32_TOL, atol=LM_F32_TOL), (
+        f"{tag} f32: prefill + decode {err32} from the forward")
+    bf = cast_params(master, bundle.cfg.compute_dtype)
+    pd16, fwd16 = lm_path_check(bundle, bf, LM_DEVICE)
+    err16 = float((pd16 - fwd16).abs().max())
+    yardstick = float((fwd16 - fwd32).abs().max())
+    assert torch.isfinite(pd16).all() and err16 <= 2 * yardstick, (
+        f"{tag} bf16: prefill + decode {err16} from the forward, bound "
+        f"2 x {yardstick}")
+    same = float((pd16.argmax(-1) == fwd16.argmax(-1)).float().mean())
+    log(f"lm {tag}: prefill + {LM_DECODE} decode steps against the forward "
+        f"({LM_PROMPTS} prompts of {LM_PROMPT_LEN}): f32 max |err| "
+        f"{err32:.3g} (rtol = atol = {LM_F32_TOL}); bf16 max |err| {err16:.4g} "
+        f"(bound 2 x {yardstick:.4g}, the bf16 forward's distance from the "
+        f"f32 forward), greedy tokens equal on {100 * same:.1f}%")
+    del bf
+    return {"f32": err32, "bf16": err16, "bf16_yardstick": yardstick,
+            "b32": b32}
+
+
+def lm_serve(bundle, params, requests, max_tokens, tag, batch=LM_BATCH,
+             max_len=LM_MAX_LEN):
+    """Serve ``requests`` through a ``ServeEngine`` whose prefill and
+    decode calls are timed with CUDA events; (engine, wall s, prefill ms
+    per wave, decode ms per step)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.serving import ServeConfig, ServeEngine
+    timed = dataclasses.replace(bundle)
+    events = {"prefill": [], "decode_step": []}
+
+    def wrap(name):
+        fn = getattr(bundle, name)
+
+        def call(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            events[name].append(ev)
+            return out
+        return call
+
+    timed.prefill, timed.decode_step = wrap("prefill"), wrap("decode_step")
+    eng = ServeEngine(timed, params, ServeConfig(batch=batch, max_len=max_len,
+                                                 eos_id=-1, temperature=0.0))
+    for i, p in enumerate(requests):
+        eng.submit(p, rid=i, max_tokens=max_tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert sorted(r.rid for r in done) == list(range(len(requests))), tag
+    assert all(len(r.out) == max_tokens for r in done), tag
+    assert all(0 <= t < bundle.cfg.vocab for r in done for t in r.out), tag
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) / max(len(v), 1)
+          for k, v in events.items()}
+    return eng, wall, ms["prefill"], ms["decode_step"]
+
+
+def phase_lm() -> dict:
+    """The LM substrate on the card: ``LM_ARCH`` at its published width
+    served by ``ServeEngine`` (random weights from a seed), prefill +
+    decode against the forward at f32 and bf16, the card against the CPU,
+    and ``LM_GQA_ARCH`` (GQA) likewise. No GSON kernel runs on this path:
+    every launch counter must read 0 after it. Returns the path's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils import tree_bytes
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    zero_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1-2. LM_ARCH at full width, served
+    cfg = get_config(LM_ARCH)
+    bundle = get_bundle(cfg)
+    t0 = time.perf_counter()
+    master = bundle.init(0, device=LM_DEVICE)
+    torch.cuda.synchronize()
+    log(f"lm {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"qkv_bias {cfg.qkv_bias}: {sum(v.numel() for v in master.values())}"
+        f" parameters ({tree_bytes(master) / 1e9:.3f} GB f32), drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    lm_serve(bundle, master, lm_prompts(2, cfg.vocab, seed=9), 2,
+             "warm-up")                       # cuBLAS handles, allocator
+    reqs = lm_prompts(LM_REQUESTS, cfg.vocab)
+    eng, wall, pre_ms, dec_ms = lm_serve(bundle, master, reqs,
+                                         LM_MAX_TOKENS, cfg.name)
+    assert (eng.prefills, eng.decode_steps) == (2, 62), (
+        eng.prefills, eng.decode_steps)
+    toks = sum(len(r.out) for r in eng.finished)
+    weights = sum(v.numel() * v.element_size()
+                  for k, v in eng.compute_params.items()
+                  if k != "embed" or cfg.tie_embeddings)
+    cache_b = tree_bytes(bundle.cache_shapes(LM_BATCH, LM_MAX_LEN))
+    bound, _ = bound_ms(weights + cache_b, 0)
+    log(f"lm serve {cfg.name}: {LM_REQUESTS} requests (prompts 4-16) x "
+        f"{LM_MAX_TOKENS} tokens, batch {LM_BATCH}, max_len {LM_MAX_LEN}: "
+        f"{eng.prefills} prefill waves, {eng.decode_steps} decode steps, "
+        f"{toks} tokens in {wall:.3f} s = {toks / wall:.1f} tokens/s; "
+        f"prefill {pre_ms:.3f} ms per wave, decode {dec_ms:.3f} ms per step "
+        f"(CUDA events); the decode step's bound {bound:.4f} ms (bf16 "
+        f"weights {weights / 1e6:.1f} MB without the embedding rows + the "
+        f"cache {cache_b / 1e6:.1f} MB, at {HBM_BPS / 1e12} TB/s)  [{card}]")
+
+    # the device's share over LM_PROFILE_STEPS decode steps of a new wave
+    peng, _, _, _ = lm_serve(bundle, master, [], 1, "profile")
+    for i, p in enumerate(reqs[:LM_BATCH]):
+        peng.submit(p, rid=100 + i, max_tokens=LM_PROFILE_STEPS + 2)
+    peng.step()                                   # drain, admit, prefill
+    peng.step()                                   # one decode step, warm
+    pwall, busy, n_ops, kernels, _ = profile_window(
+        lambda: [peng.step() for _ in range(LM_PROFILE_STEPS)])
+    if busy <= 0:
+        log("lm profile: not measured (no device time recorded)")
+    else:
+        log(f"lm profile ({LM_PROFILE_STEPS} decode steps, batch "
+            f"{LM_BATCH}): wall {pwall * 1e3 / LM_PROFILE_STEPS:.3f} ms per "
+            f"step, device busy {busy * 1e3 / LM_PROFILE_STEPS:.3f} ms per "
+            f"step = {100 * busy / pwall:.1f}% ({100 - 100 * busy / pwall:.1f}"
+            f"% idle), {n_ops / LM_PROFILE_STEPS:.0f} device ops per step; "
+            f"against the unprofiled decode step ({dec_ms:.3f} ms) the device "
+            f"is busy {100 * busy * 1e3 / LM_PROFILE_STEPS / dec_ms:.1f}%")
+        for name, (cnt, us) in sorted(kernels.items(),
+                                      key=lambda kv: -kv[1][1])[:6]:
+            log(f"  {us / LM_PROFILE_STEPS:9.1f} us/step  "
+                f"{cnt / LM_PROFILE_STEPS:5.0f} per step  {name[:80]}")
+    del eng, peng
+    log(f"lm {cfg.name}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+
+    # 3. prefill + decode against the forward, f32 and bf16
+    errs = lm_checks(bundle, master, cfg.name)
+
+    # 4. the card against the CPU, from the same f32 weights
+    b32 = errs["b32"]
+    pd_card, _ = lm_path_check(b32, master, LM_DEVICE, LM_CARD_CPU_STEPS)
+    host = {k: v.cpu() for k, v in master.items()}
+    pd_cpu, _ = lm_path_check(b32, host, "cpu", LM_CARD_CPU_STEPS)
+    diff = float((pd_card.cpu() - pd_cpu).abs().max())
+    assert torch.allclose(pd_card.cpu(), pd_cpu, rtol=LM_CARD_CPU_TOL,
+                          atol=LM_CARD_CPU_TOL), f"card against the CPU: {diff}"
+    top2 = pd_cpu.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > LM_CARD_CPU_TOL
+    same = pd_card.cpu().argmax(-1) == pd_cpu.argmax(-1)
+    assert bool(same[clear].all()), "greedy tokens differ on a clear margin"
+    log(f"lm {cfg.name} card against the CPU (f32, prefill + "
+        f"{LM_CARD_CPU_STEPS} decode steps): max |diff| {diff:.3g} (rtol = "
+        f"atol = {LM_CARD_CPU_TOL}); greedy tokens equal on {int(clear.sum())} of "
+        f"{clear.numel()} rows with a top-2 margin over {LM_CARD_CPU_TOL} "
+        f"({int(same.sum())} of {same.numel()} in all)")
+    del host, master, b32, errs
+    torch.cuda.empty_cache()
+    mem_qwen = torch.cuda.max_memory_allocated()
+
+    # 5. LM_GQA_ARCH at full width: the same checks, then one wave
+    torch.cuda.reset_peak_memory_stats()
+    gcfg = get_config(LM_GQA_ARCH)
+    gbundle = get_bundle(gcfg)
+    gmaster = gbundle.init(0, device=LM_DEVICE)
+    gerrs = lm_checks(gbundle, gmaster, gcfg.name)
+    del gerrs
+    geng, gwall, gpre, gdec = lm_serve(
+        gbundle, gmaster, lm_prompts(LM_GQA_WAVE, gcfg.vocab, seed=3),
+        LM_GQA_TOKENS, gcfg.name, batch=LM_GQA_WAVE, max_len=64)
+    gtoks = sum(len(r.out) for r in geng.finished)
+    log(f"lm serve {gcfg.name} ({gcfg.n_layers} layers, GQA "
+        f"{gcfg.n_heads}/{gcfg.n_kv}, no bias): one wave of {LM_GQA_WAVE} "
+        f"requests x {LM_GQA_TOKENS} tokens, {gtoks} tokens in {gwall:.3f} s"
+        f" = {gtoks / gwall:.1f} tokens/s; prefill {gpre:.3f} ms, decode "
+        f"{gdec:.3f} ms per step; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    del geng, gmaster
+    torch.cuda.empty_cache()
+
+    # 6. no GSON kernel on this path
+    launches = read_counters("lm path", ())
+    assert all(n == 0 for n in launches.values()), (
+        f"GSON kernels launched on the LM path: {launches}")
+    log(f"lm path launches: {launches} (none of the GSON kernels); phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {LM_ARCH} peak "
+        f"{mem_qwen / 2**30:.2f} GiB  [{card}]")
+    return {"lm": launches}
 
 
 def profile_window(run):
@@ -1935,6 +2207,7 @@ def main() -> int:
         paths["serve"] = phase_serve({v: f[:2] for v, f in fleet.items()})
         paths.update(phase_mesh())
         phase_c2()
+        paths.update(phase_lm())
         phase_profile()
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()

@@ -8,7 +8,8 @@ the same way, every array with a leading batch axis, plus its run carry
 (``iteration``, ``converged``, ``qe``); the JAX fleet's sampling keys stay
 behind, as the port gives each network its own RNG seam. The hash
 grid of ``repro.ann`` (``GridAux``) comes across as its four arrays plus
-its static ``dims``.
+its static ``dims``. An LM's parameters come across as a dict of numpy
+arrays under the JAX parameter names (``layers/wq``, ...).
 """
 from __future__ import annotations
 
@@ -88,3 +89,21 @@ def grid_aux_from_numpy(arrays: dict, dims, device="cpu") -> GridAux:
                            device=device)
         for name, dtype in _AUX_DTYPES.items()}, dims=tuple(dims))
 
+
+
+def lm_params_from_numpy(arrays: dict, cfg, device="cuda") -> dict:
+    """An LM's parameters on ``device`` in ``cfg.param_dtype``, from numpy
+    arrays keyed by the JAX parameter names (e.g. ``jax.device_get`` of a
+    JAX bundle's params). A bf16 array goes through f32, which is exact;
+    an f32 array rounds to a bf16 ``param_dtype`` to nearest even, as
+    JAX's ``astype`` does."""
+    return {name: torch.tensor(np.asarray(a, dtype=np.float32),
+                               device=device).to(cfg.param_dtype)
+            for name, a in arrays.items()}
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """Parameter name -> numpy array on the host (bf16 as f32, exactly)."""
+    return {name: (t.detach().float() if t.dtype == torch.bfloat16
+                   else t.detach()).cpu().numpy()
+            for name, t in params.items()}

@@ -1,1 +1,2 @@
-"""Input pipelines of the port (``repro.data``'s point clouds)."""
+"""Input pipelines of the port (``repro.data``): point clouds
+(``pointclouds``) and the synthetic LM token stream (``tokens``)."""

@@ -1,0 +1,158 @@
+"""Uniform model API of the port, consumed by the server
+(``repro.models.registry``'s counterpart).
+
+``get_bundle(cfg)`` returns a ModelBundle exposing:
+  init / param_shapes                    — parameters (2 views, 1 table)
+  loss(params, batch)                    — training objective
+  forward(params, batch)                 — prefill-style full forward
+  init_cache / decode_step / prefill     — serving
+  cache_shapes / input_specs(shape)      — ``meta`` tensors (no memory)
+
+It serves the ``dense`` and ``vlm`` families. ``moe`` (ROADMAP A15c),
+``ssm`` and ``hybrid`` (A15d) and ``encdec`` (A15e) raise
+``NotImplementedError``, as do ``param_specs`` and any ``mesh`` (A15f).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.common import ModelConfig, ParamSet, ShapeCfg
+
+_NOT_PORTED = {
+    "moe": "the MoE family (models/moe.py) is not ported yet: ROADMAP A15c",
+    "ssm": "the SSM family (models/ssm.py, ssm_lm.py) is not ported yet: "
+           "ROADMAP A15d",
+    "hybrid": "the hybrid family (models/hybrid.py) is not ported yet: "
+              "ROADMAP A15d",
+    "encdec": "the enc-dec family (models/encdec.py) is not ported yet: "
+              "ROADMAP A15e",
+}
+
+
+@dataclass
+class ModelBundle:
+    cfg: ModelConfig
+    param_set: ParamSet
+    _loss: Callable
+    _forward: Callable
+    _init_cache: Callable | None = None
+    _decode_step: Callable | None = None
+    _prefill: Callable | None = None
+
+    # ---- parameters -----------------------------------------------------
+    def init(self, seed_or_generator=0, device="cuda") -> dict:
+        """Parameters on ``device`` (the card unless the caller asks for
+        the CPU), drawn from a seed or a ``torch.Generator``."""
+        return self.param_set.init(seed_or_generator, device)
+
+    def param_shapes(self) -> dict:
+        return self.param_set.shapes()
+
+    def param_specs(self, rules):
+        raise NotImplementedError(
+            "parameter sharding specs are not ported yet: ROADMAP A15f")
+
+    # ---- compute --------------------------------------------------------
+    def loss(self, params, batch, mesh=None):
+        return self._loss(params, self.cfg, batch, mesh=mesh)
+
+    def forward(self, params, batch, mesh=None):
+        return self._forward(params, self.cfg, batch, mesh=mesh)
+
+    @property
+    def can_decode(self) -> bool:
+        return self._decode_step is not None
+
+    def init_cache(self, batch: int, max_len: int, device="cuda"):
+        return self._init_cache(self.cfg, batch, max_len, device=device)
+
+    def decode_step(self, params, cache, token, mesh=None):
+        """(cache, logits); updates ``cache``'s k and v in place."""
+        return self._decode_step(params, self.cfg, cache, token, mesh=mesh)
+
+    def prefill(self, params, batch, max_len=None, mesh=None):
+        """Prompt pass -> (cache, last_logits). ``batch`` as input_specs;
+        a vlm batch's image prefix and text prompt share one sequence."""
+        return self._prefill(params, self.cfg, batch["tokens"],
+                             max_len=max_len, mesh=mesh,
+                             img_embeds=batch.get("img_embeds"))
+
+    def cache_shapes(self, batch: int, max_len: int):
+        return self._init_cache(self.cfg, batch, max_len, device="meta")
+
+    # ---- inputs -----------------------------------------------------------
+    def input_specs(self, shape: ShapeCfg) -> dict:
+        """``meta`` tensors standing in for every model input of this
+        cell."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def meta(shp, dtype=torch.int32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            t = s - cfg.n_img_tokens if cfg.family == "vlm" else s
+            specs = {"tokens": meta((b, t))}
+            if shape.kind == "train":
+                specs["labels"] = meta((b, t))
+            if cfg.family == "vlm":
+                specs["img_embeds"] = meta((b, cfg.n_img_tokens, cfg.d_model),
+                                           torch.float32)
+            return specs
+        # decode: one new token against a seq_len cache
+        return {"token": meta((b, 1)), "cache": self.cache_shapes(b, s)}
+
+
+# ---------------------------------------------------------------------------
+# family wiring
+# ---------------------------------------------------------------------------
+
+def _dense_loss(params, cfg, batch, mesh=None):
+    return transformer.loss_fn(params, cfg, batch, mesh=mesh)
+
+
+def _dense_forward(params, cfg, batch, mesh=None):
+    return transformer.forward(params, cfg, batch["tokens"],
+                               batch.get("img_embeds"), mesh=mesh)
+
+
+def get_bundle(cfg: ModelConfig) -> ModelBundle:
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        return ModelBundle(
+            cfg, transformer.dense_param_set(cfg),
+            _dense_loss, _dense_forward,
+            transformer.init_cache, transformer.decode_step,
+            transformer.prefill)
+    if fam in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[fam])
+    raise ValueError(fam)
+
+
+def smoke_config(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests."""
+    kw = dict(
+        n_layers=2, d_model=64, d_head=16, vocab=256,
+        remat="none", attn_chunk=32, compute_dtype=torch.float32,
+        param_dtype=torch.float32, rope_theta=1e4,
+    )
+    kw["n_heads"] = min(cfg.n_heads, 4) if cfg.n_heads else 0
+    kw["n_kv"] = min(cfg.n_kv, kw["n_heads"]) if cfg.n_kv else 0
+    kw["d_ff"] = 128 if cfg.d_ff else 0
+    if cfg.family == "moe":
+        kw.update(n_experts=8, top_k=min(cfg.top_k, 2),
+                  d_ff_expert=32,
+                  n_shared_experts=min(cfg.n_shared_experts, 2))
+    if cfg.family in ("ssm", "hybrid"):
+        kw.update(ssm_state=8, ssm_headdim=8, ssm_chunk=16)
+    if cfg.family == "hybrid":
+        kw.update(hybrid_attn_every=2, n_heads=4, n_kv=4, d_ff=128)
+    if cfg.family == "encdec":
+        kw.update(n_encoder_layers=2, encoder_ctx=24)
+    if cfg.family == "vlm":
+        kw.update(n_img_tokens=8)
+    return cfg.replace(**kw)

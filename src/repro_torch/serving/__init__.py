@@ -1,11 +1,14 @@
-"""Serving for the port: the reconstruction half of ``repro.serving``.
+"""Serving for the port (``repro.serving``): the LM ``ServeEngine`` and
+reconstruction serving.
 
-``ReconstructionServer`` admits queued ``RunSpec`` jobs as fleet waves,
-streams their history, snapshots them and retries faulted jobs from
-checkpoint (``repro_torch.serving.engine``). The LM half of the JAX
-package's serving (``ServeEngine``, ``ServeConfig``) waits for the LM
-substrate (ROADMAP A15).
+``ServeEngine`` serves LM requests in waves over one shared KV cache
+(``ServeConfig``, ``Request``); ``ReconstructionServer`` admits queued
+``RunSpec`` jobs as fleet waves, streams their history, snapshots them
+and retries faulted jobs from checkpoint (``repro_torch.serving.engine``).
 """
-from repro_torch.serving.engine import ReconstructionJob, ReconstructionServer
+from repro_torch.serving.engine import (ReconstructionJob,
+                                        ReconstructionServer, Request,
+                                        ServeConfig, ServeEngine)
 
-__all__ = ["ReconstructionJob", "ReconstructionServer"]
+__all__ = ["ReconstructionJob", "ReconstructionServer", "Request",
+           "ServeConfig", "ServeEngine"]

@@ -1,12 +1,22 @@
-"""Reconstruction serving: many surface-reconstruction jobs admitted into
-fleet slots, one batched program per wave.
+"""Serving of the port (``repro.serving.engine``'s counterpart): the LM
+engine and reconstruction serving.
 
-The port's counterpart of the reconstruction half of
-``repro.serving.engine`` (``ReconstructionJob``, ``ReconstructionServer``),
-with its scheduling and supervision rules. Every fleet wave and solo job
-runs on its spec's device through the port's fleets and sessions, so a
-wave on ``cuda-full`` launches the four Hopper kernels. The LM half of
-the JAX module (``ServeEngine``, ``ServeConfig``) waits for ROADMAP A15.
+``ServeEngine`` is wave-based continuous batching of LM requests: a fixed
+pool of ``batch`` sequence slots shares one KV cache; queued requests are
+admitted in waves, prefilled together as one batched prompt pass, and
+one decode step advances every live slot per tick. Its rules are the JAX
+engine's, kept on purpose: a wave's prompts are left-padded with token 0
+and the pads are attended (there is no pad mask), and every slot writes
+the cache at one shared position (the lockstep invariant). It runs on
+its parameters' device and holds one copy of them in the compute dtype,
+made once; the values are those JAX casts inside every call. Each tick
+reads its sampled tokens from the device once.
+
+``ReconstructionJob`` and ``ReconstructionServer`` serve
+surface-reconstruction jobs in fleet slots, one batched program per wave,
+with the JAX server's scheduling and supervision rules. Every fleet wave
+and solo job runs on its spec's device through the port's fleets and
+sessions, so a wave on ``cuda-full`` launches the four Hopper kernels.
 
 A fault in a wave's advance becomes a job fault, retried from the job's
 last checkpoint on the same backend and device: nothing here swaps in
@@ -22,6 +32,8 @@ import time
 import warnings
 from dataclasses import dataclass, field
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint import manager as ckpt_mgr
@@ -30,6 +42,153 @@ from repro_torch.gson import faults as gf
 from repro_torch.gson.fleet import FleetSession, FleetSpec
 from repro_torch.gson.session import Session
 from repro_torch.gson.spec import resolve_variant
+from repro_torch.models.common import cast_params
+from repro_torch.models.registry import ModelBundle
+from repro_torch.models.transformer import no_mesh
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (P,) int32
+    max_tokens: int = 32
+    out: list = field(default_factory=list)
+    done: bool = False
+
+
+@dataclass
+class ServeConfig:
+    batch: int = 8                # slot count
+    max_len: int = 512
+    eos_id: int = 1
+    temperature: float = 0.0      # 0 = greedy
+
+
+class ServeEngine:
+    """``rng``: the ``torch.Generator`` that sampling at ``temperature >
+    0`` draws from (by default one on the parameters' device, seeded 0).
+    Its draws are not ``jax.random.categorical``'s: sampling is
+    Gumbel-max over ``logits / temperature`` in f32."""
+
+    def __init__(self, bundle: ModelBundle, params, cfg: ServeConfig,
+                 mesh=None, rng: torch.Generator | None = None):
+        no_mesh(mesh)
+        self.bundle = bundle
+        self.params = params
+        # the compute-dtype copy every call reads (the same tensors when
+        # the master is already in that dtype)
+        self.compute_params = cast_params(params, bundle.cfg.compute_dtype)
+        self.device = params["embed"].device
+        self.cfg = cfg
+        self.rng = rng if rng is not None else torch.Generator(
+            device=self.device).manual_seed(0)
+        self.queue: list[Request] = []
+        self.slots: list[Request | None] = [None] * cfg.batch
+        self.finished: list[Request] = []
+        self.cache = None
+        self.tokens = torch.zeros((cfg.batch, 1), dtype=torch.int32,
+                                  device=self.device)
+        self.decode_steps = 0
+        self.prefills = 0
+
+    # ------------------------------------------------------------------
+    def submit(self, prompt, rid: int | None = None,
+               max_tokens: int = 32) -> Request:
+        rid = rid if rid is not None else (
+            len(self.queue) + len(self.finished)
+            + sum(r is not None for r in self.slots))
+        req = Request(rid, np.asarray(prompt, np.int32), max_tokens)
+        self.queue.append(req)
+        return req
+
+    def _admit_wave(self):
+        """Fill free slots from the queue, one batched prefill.
+
+        Prompts are right-aligned to the wave's longest prompt by
+        left-padding with token 0, so the shared cache position is the
+        same for every slot (the lockstep invariant).
+        """
+        wave = []
+        for i in range(self.cfg.batch):
+            if not self.queue:
+                break
+            req = self.queue.pop(0)
+            self.slots[i] = req
+            wave.append((i, req))
+        plen = max(len(r.prompt) for _, r in wave)
+        b = self.cfg.batch
+        toks = np.zeros((b, plen), np.int32)
+        for slot, req in wave:
+            toks[slot, plen - len(req.prompt):] = req.prompt
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch.update(self._modality_stub(b))
+        self.cache, logits = self.bundle.prefill(
+            self.compute_params, batch, max_len=self.cfg.max_len)
+        self.prefills += 1
+        nxt = self._sample(logits)
+        self.tokens = nxt[:, None]
+        vals = nxt.tolist()
+        for slot, req in wave:
+            req.out.append(vals[slot])
+
+    def _modality_stub(self, b: int) -> dict:
+        cfg = self.bundle.cfg
+        if cfg.family == "vlm":
+            return {"img_embeds": torch.zeros(
+                (b, cfg.n_img_tokens, cfg.d_model), dtype=torch.float32,
+                device=self.device)}
+        return {}
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """Greedy: ``argmax`` in the logits' own dtype (the first index
+        on a tie, as ``jnp.argmax``). Else Gumbel-max from ``rng``."""
+        if self.cfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        z = logits.float() / self.cfg.temperature
+        e = torch.empty_like(z).exponential_(generator=self.rng)
+        return torch.argmax(z - torch.log(e), dim=-1).to(torch.int32)
+
+    # ------------------------------------------------------------------
+    def step(self):
+        """One engine tick: admit a wave when idle, else decode."""
+        live = [r for r in self.slots if r is not None and not r.done]
+        if not live:
+            self._drain()
+            if self.queue:
+                self._admit_wave()
+            return
+        self.cache, logits = self.bundle.decode_step(
+            self.compute_params, self.cache, self.tokens)
+        nxt = self._sample(logits)
+        self.tokens = nxt[:, None]
+        self.decode_steps += 1
+        vals = nxt.tolist()
+        for i, req in enumerate(self.slots):
+            if req is None or req.done:
+                continue
+            tok = vals[i]
+            req.out.append(tok)
+            if tok == self.cfg.eos_id or len(req.out) >= req.max_tokens:
+                req.done = True
+
+    def _drain(self):
+        for i, req in enumerate(self.slots):
+            if req is not None and req.done:
+                self.finished.append(req)
+                self.slots[i] = None
+
+    def run(self, max_ticks: int = 10_000) -> list[Request]:
+        while (self.queue or any(
+                r is not None for r in self.slots)) and max_ticks > 0:
+            self.step()
+            max_ticks -= 1
+        self._drain()
+        return self.finished
+
+
+# ---------------------------------------------------------------------------
+# GSON reconstruction serving: many concurrent surface-reconstruction
+# jobs admitted into fleet slots — one batched device program per wave.
 
 
 @dataclass

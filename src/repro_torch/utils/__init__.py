@@ -1,0 +1,5 @@
+"""Helpers of the port: timers and the bookkeeping of parameter trees."""
+from repro_torch.utils.timing import Timer, timed
+from repro_torch.utils.trees import tree_bytes, tree_param_count
+
+__all__ = ["Timer", "timed", "tree_bytes", "tree_param_count"]

@@ -32,6 +32,14 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.serving.engine\n"
         "import repro_torch.core.gson.distributed, repro_torch.ft, "
         "repro_torch.gson.elastic\n"
+        "import repro_torch.utils, repro_torch.utils.timing, "
+        "repro_torch.utils.trees, repro_torch.models, "
+        "repro_torch.models.common, repro_torch.models.attention, "
+        "repro_torch.models.transformer, repro_torch.models.registry\n"
+        "import repro_torch.configs, repro_torch.data.tokens, "
+        "repro_torch.launch, repro_torch.launch.serve\n"
+        "from repro_torch.configs import all_configs\n"
+        "all_configs()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -44,7 +52,8 @@ def test_import_loads_no_jax_and_no_repro():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [
         *PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-        ROOT / "examples" / "torch_surface_reconstruction.py"]))
+        ROOT / "examples" / "torch_surface_reconstruction.py",
+        ROOT / "examples" / "torch_serve_lm.py"]))
 def test_source_imports_no_jax_and_no_repro(path):
     src = (ROOT / path).read_text()
     assert not FORBIDDEN.search(src), f"{path} imports jax or repro"

@@ -1001,6 +1001,48 @@ def test_serve_on_card_poisoned_job_equals_its_session(cuda_device,
                                getattr(sess.state, name)), (s, name)
 
 
+@pytest.mark.cuda
+def test_lm_serve_on_card_equals_the_cpu(cuda_device):
+    """The qwen1.5-0.5b smoke config at f32 from one set of weights on the
+    card and on the CPU: prefill and three decode steps within 1e-4, then
+    a ``ServeEngine`` on each (the cache written at a device index, one
+    read of the tick's tokens) giving the same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_bundle, smoke_config
+    from repro_torch.serving import ServeConfig, ServeEngine
+    cfg = smoke_config(get_config("qwen1.5-0.5b"))
+    bundle = get_bundle(cfg)
+    host = bundle.init(0, device="cpu")
+    card = {k: v.to(cuda_device) for k, v in host.items()}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab, (3, 12)).astype(np.int32))
+    out = []
+    for params, dev in ((host, "cpu"), (card, cuda_device)):
+        t = toks.to(dev)
+        cache, logits = bundle.prefill(params, {"tokens": t[:, :9]},
+                                       max_len=16)
+        steps = [logits]
+        for j in range(9, 12):
+            cache, logits = bundle.decode_step(params, cache, t[:, j:j + 1])
+            steps.append(logits)
+        assert cache["length"].device.type == torch.device(dev).type
+        out.append(torch.stack(steps).cpu())
+    torch.testing.assert_close(out[1], out[0], rtol=1e-4, atol=1e-4)
+
+    served = []
+    for params in (host, card):
+        eng = ServeEngine(bundle, params,
+                          ServeConfig(batch=4, max_len=32, eos_id=-1))
+        assert eng.device == params["embed"].device
+        rng = np.random.default_rng(1)
+        for i in range(6):
+            eng.submit(rng.integers(2, cfg.vocab, size=int(rng.integers(
+                1, 9))), rid=i, max_tokens=6)
+        served.append({r.rid: r.out for r in eng.run()})
+        assert (eng.prefills, eng.decode_steps) == (2, 10)
+    assert served[1] == served[0]
+
+
 def test_non_cpu_tensors_never_take_the_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises."""
     sig = torch.zeros((1, 4, 3), device="meta")
