@@ -133,8 +133,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    search's refusal of TF32, the grid search's own answer on a dense
    pool (the guard passes, the ids are the exhaustive search's), a
    served poisoned job on the card and the LM smoke config's
-   ``ServeEngine`` on the card against the CPU, run by pytest in a child
-   process.
+   ``ServeEngine`` on the card against the CPU; and (``c4_``) paths that
+   no record had shown on the card: the ``indexed`` backend inside
+   ``multi``/``multi-fused``, ANN backends in a B = 4 fleet, the engine
+   shim's ``indexed`` variant, ``PointCloudStream``/``NoisySampler``, an
+   ANN backend at recall 0.8, the vlm family, sampling at temperature >
+   0, ``python -m repro_torch.launch.serve``, and the three examples
+   (``torch_serve_lm``, ``torch_quickstart``,
+   ``torch_surface_reconstruction``), each against the CPU or the port's
+   own reference path; and a smoke train step on the card against the
+   CPU (``lm_train``); run by pytest in a child process.
 17. lm — the LM substrate, which launches none of the GSON kernels (every
    counter set to 0 before and 0 after): ``LM_ARCH`` (qwen1.5-0.5b) at its
    published width from random weights, a ``ServeEngine`` of
@@ -150,17 +158,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    distance from the f32 forward); the card against the CPU from the same
    f32 weights (rtol = atol = ``LM_CARD_CPU_TOL``, greedy tokens equal
    wherever the CPU's top-2 margin exceeds it); ``LM_GQA_ARCH``
-   (granite-3-2b, GQA 32/8) through the same two checks and one wave.
-   Its memory is freed before the profile phase.
-18. profile — where the main path's time goes (``torch.profiler``):
+   (granite-3-2b, GQA 32/8) through the same two checks and one wave;
+   ``LM_MOE_ARCH`` (qwen2-moe-a2.7b) at full width with bf16 parameters
+   served on the same requests (tokens/s, decode ms per step, peak
+   memory, the bytes bound of the dense reference path beside a routed
+   design's), prefill + decode against the forward at f32 on a 2-layer
+   full-width model, and one smoke-size MoE train step on the card
+   against the CPU. Its memory is freed before the next phase.
+18. train — ``TRAIN_ARCH`` (qwen1.5-0.5b) trained at full width (f32
+   master, bf16 compute, remat full) on ``train_4k``'s 4096-token
+   sequences, the global batch cut to ``TRAIN_BATCH``, through
+   ``launch.steps.build_train_step`` with the cell's deployment (one
+   sequence per microbatch, AdamW), ``TRAIN_STEPS`` steps: ms per step
+   (CUDA events), tokens/s, peak memory, the step's FLOP bound and its
+   share; loss and gnorm finite, every parameter changed; a checkpoint
+   after ``TRAIN_SAVE_AT`` steps restored into a fresh tree replays the
+   rest (bitwise or within 2 lr per step, as printed); the card against
+   the CPU on a 2-layer full-width model (loss within 1e-5, gradients
+   within 1e-4 of each parameter's largest). Every counter reads 0.
+19. profile — where the main path's time goes (``torch.profiler``):
    device busy share and top kernels at B = 1, then device ops and
    device time per iteration and the busy share of the fleet at B = 8,
    whose window must show one launch of each of the port's device
    kernels per fleet iteration (a profiler that records nothing prints
    "not measured" instead).
-19. report — the ``kernels`` JSON line (each kernel's launches on the main
+20. report — the ``kernels`` JSON line (each kernel's launches on the main
    path, under ``paths`` on every path driven with the counters set to 0
-   before and read after (``lm`` among them, all 0), under ``paper`` the capacity that phase
+   before and read after (``lm`` and ``train`` among them, all 0), under ``paper`` the capacity that phase
    13 ran and its launches, ms and bound there, and for B1 under
    ``shapes`` phase 3's m = 1 and dense-pool figures), the card's line,
    and last ``{"ok": true, "device": {...}}``.
@@ -189,16 +213,16 @@ OUT = ROOT / "chiprun_out"
 SEED = 7
 HORIZON = 64           # iterations over which cuda-full == reference rows
 MAIN_ITERS = 256       # main-path budget per variant
-PAIRS, PAIR_ITERS = 3, 128   # cuda-full vs reference timing pairs
+PAIRS, PAIR_ITERS = 2, 128   # cuda-full vs reference timing pairs
 FLEET_B, FLEET_ITERS = 8, 128     # the fleet phase
 # the checkpoint phase cuts at CKPT_ITERS, a multiple of the fused
 # superstep (64), so multi-fused emits the rows of an uninterrupted run
 CKPT_B, CKPT_ITERS = 4, 64
 SLAB_CELLS = ((256, 4096, 512), (384, 8192, 768))   # (units, capacity, m)
 SPARSE_ITERS = 128     # the cuda-sparse session (fixed_m = 512)
-SINGLE_CHUNKS = 8      # chunks of 256 signals of the single session
-ANN_ITERS = 128        # each ANN session at the default RunSpec
-INDEXED_CHUNKS = 2     # chunks of 256 signals of the indexed session
+SINGLE_CHUNKS = 2      # chunks of 256 signals of the single session
+ANN_ITERS = 64         # each ANN session at the default RunSpec
+INDEXED_CHUNKS = 1     # chunks of 256 signals of the indexed session
 PAPER_ITERS = 512      # the paper's configuration (capacity 32768)
 # the serve phase: slots, slice (one fused superstep), fleet-job and
 # paper-job iterations, the single job's chunks of SERVE_CHUNK signals
@@ -1809,6 +1833,20 @@ LM_PROMPTS, LM_PROMPT_LEN, LM_DECODE = 2, 12, 8
 LM_F32_TOL, LM_CARD_CPU_TOL, LM_CARD_CPU_STEPS = 2e-3, 1e-3, 4
 LM_GQA_WAVE, LM_GQA_TOKENS = 8, 16
 LM_DEVICE = "cuda"
+# the MoE model served at full width in bf16 (DEPLOY's serve_bf16)
+LM_MOE_ARCH = "qwen2-moe-a2.7b"
+
+# the train phase: the model trained at full width, train_4k's sequence
+# length with the global batch cut from 256 to TRAIN_BATCH sequences,
+# TRAIN_STEPS steps with a checkpoint after TRAIN_SAVE_AT; the card
+# against the CPU on a TRAIN_CHECK_LAYERS-layer full-width model over
+# TRAIN_CHECK_SEQ tokens (loss within TRAIN_LOSS_TOL relative, each
+# gradient within TRAIN_GRAD_TOL of its parameter's largest gradient)
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_AT = 8, 4, 2
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_SEQ = 2, 256
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 
 
 # the cuda tests of the paths that had not run on the card before (the
@@ -1816,7 +1854,8 @@ LM_DEVICE = "cuda"
 # fleet at B = 4), TF32's refusal by the windowed search, the grid's
 # own answer on a dense pool, a served poisoned job on the card, and the
 # LM smoke config on the card against the CPU (ServeEngine's device paths)
-C2_TESTS = ("c2_", "tf32", "grid_on_card", "serve_on_card", "lm_serve")
+C2_TESTS = ("c2_", "tf32", "grid_on_card", "serve_on_card", "lm_serve",
+            "c4_", "lm_train")
 
 
 def phase_c2():
@@ -1828,7 +1867,7 @@ def phase_c2():
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
          "-m", "cuda", "-k", " or ".join(C2_TESTS),
          str(ROOT / "tests" / "test_torch_kernels_cuda.py")],
-        capture_output=True, text=True, env=env, cwd=ROOT, timeout=400)
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
     tail = out.stdout.strip().splitlines()[-1:] or [out.stderr[-300:]]
     log(f"c2: pytest {' or '.join(C2_TESTS)}: {tail[0]}")
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-2000:]
@@ -2063,7 +2102,10 @@ def phase_lm() -> dict:
     del geng, gmaster
     torch.cuda.empty_cache()
 
-    # 6. no GSON kernel on this path
+    # 6. LM_MOE_ARCH at full width in bf16, its f32 checks, a train step
+    lm_moe(card)
+
+    # 7. no GSON kernel on this path
     launches = read_counters("lm path", ())
     assert all(n == 0 for n in launches.values()), (
         f"GSON kernels launched on the LM path: {launches}")
@@ -2071,6 +2113,307 @@ def phase_lm() -> dict:
         f"{time.perf_counter() - t_phase:.1f} s; {LM_ARCH} peak "
         f"{mem_qwen / 2**30:.2f} GiB  [{card}]")
     return {"lm": launches}
+
+
+def lm_moe(card: str) -> None:
+    """``LM_MOE_ARCH`` at its published width with bf16 parameters (the
+    deployment table's ``serve_bf16``: an f32 master would not fit beside
+    the engine's copy) served by ``ServeEngine`` on the requests of the
+    dense case: tokens/s, decode ms per step, peak memory and the decode
+    step's bytes bound (every padded expert is read: the reference path
+    is dense), beside the bytes a routed design would read. Then prefill
+    + decode against the forward at f32 on a 2-layer full-width model,
+    and one smoke-size train step on the card against the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import padded_experts
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils import tree_bytes
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_MOE_ARCH).replace(param_dtype=torch.bfloat16)
+    bundle = get_bundle(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(0, device=LM_DEVICE)
+    torch.cuda.synchronize()
+    e_pad = padded_experts(cfg, 16)
+    log(f"lm {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} routed experts (padded to {e_pad}) top-{cfg.top_k} "
+        f"+ {cfg.n_shared_experts} shared, expert d_ff {cfg.d_ff_expert}, "
+        f"vocab {cfg.vocab}: {sum(v.numel() for v in params.values())} "
+        f"parameters ({tree_bytes(params) / 1e9:.3f} GB bf16), drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    lm_serve(bundle, params, lm_prompts(2, cfg.vocab, seed=9), 2,
+             "moe warm-up")
+    eng, wall, pre_ms, dec_ms = lm_serve(
+        bundle, params, lm_prompts(LM_REQUESTS, cfg.vocab), LM_MAX_TOKENS,
+        cfg.name)
+    assert (eng.prefills, eng.decode_steps) == (2, 62), (
+        eng.prefills, eng.decode_steps)
+    assert all(eng.compute_params[k] is params[k] for k in params), (
+        "the engine copied bf16 parameters")
+    toks = sum(len(r.out) for r in eng.finished)
+    weights = sum(v.numel() * v.element_size() for k, v in params.items()
+                  if k != "embed" or cfg.tie_embeddings)
+    expert_b = sum(params[k].numel() * params[k].element_size()
+                   for k in ("layers/we_gate", "layers/we_up",
+                             "layers/we_down"))
+    touched = min(cfg.n_experts, LM_BATCH * cfg.top_k)
+    routed = weights - expert_b + expert_b * touched // e_pad
+    cache_b = tree_bytes(bundle.cache_shapes(LM_BATCH, LM_MAX_LEN))
+    bound, _ = bound_ms(weights + cache_b, 0)
+    routed_ms, _ = bound_ms(routed + cache_b, 0)
+    log(f"lm serve {cfg.name} (bf16): {LM_REQUESTS} requests x "
+        f"{LM_MAX_TOKENS} tokens, batch {LM_BATCH}: {eng.prefills} prefill "
+        f"waves, {eng.decode_steps} decode steps, {toks} tokens in "
+        f"{wall:.3f} s = {toks / wall:.1f} tokens/s; prefill {pre_ms:.3f} ms "
+        f"per wave, decode {dec_ms:.3f} ms per step (CUDA events); the "
+        f"decode step's bound {bound:.4f} ms (every padded expert read: "
+        f"weights {weights / 1e9:.3f} GB without the embedding rows + the "
+        f"cache {cache_b / 1e6:.1f} MB, at {HBM_BPS / 1e12} TB/s); a routed "
+        f"design reading at most {touched} of {e_pad} experts per layer: "
+        f"{routed_ms:.4f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # prefill + decode against the forward at f32, 2 layers, full width
+    c32 = get_config(LM_MOE_ARCH).replace(n_layers=2,
+                                          compute_dtype=torch.float32)
+    b32 = get_bundle(c32)
+    m32 = b32.init(0, device=LM_DEVICE)
+    pd, fwd = lm_path_check(b32, m32, LM_DEVICE)
+    err = float((pd - fwd).abs().max())
+    assert torch.isfinite(pd).all() and torch.allclose(
+        pd, fwd, rtol=LM_F32_TOL, atol=LM_F32_TOL), (
+        f"{c32.name} f32: prefill + decode {err} from the forward")
+    log(f"lm {c32.name} (2 layers, full width, f32): prefill + {LM_DECODE} "
+        f"decode steps against the forward ({LM_PROMPTS} prompts of "
+        f"{LM_PROMPT_LEN}): max |err| {err:.3g} (rtol = atol = {LM_F32_TOL})")
+    del m32, pd, fwd
+    torch.cuda.empty_cache()
+    smoke_train_step_card_vs_cpu(LM_MOE_ARCH)
+
+
+def smoke_train_step_card_vs_cpu(arch: str, lr: float = 1e-3) -> None:
+    """One train step of ``arch``'s smoke config (f32, AdamW, two
+    microbatches) on the card and on the CPU from one set of weights: the
+    loss within 1e-5 relative, the gradient norm within 1e-4, each
+    parameter within 2 lr + 1e-6 (AdamW's first step is about lr
+    sign(g), and a gradient whose sign is rounding noise may flip)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models.common import ShapeCfg
+    from repro_torch.models.registry import get_bundle, smoke_config
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.trainer import TrainConfig, make_train_step
+    cfg = smoke_config(get_config(arch))
+    bundle = get_bundle(cfg)
+    tcfg = TrainConfig(opt=OptConfig(lr=lr), microbatches=2)
+    step = make_train_step(bundle, tcfg=tcfg)
+    batch = synthetic_batch(cfg, ShapeCfg("t", 32, 4, "train"), device="cpu")
+    host = bundle.init(0, device="cpu")
+    out = {}
+    for dev in ("cpu", LM_DEVICE):
+        params = {k: v.to(dev, copy=True) for k, v in host.items()}
+        p, _, m = step(params, init_opt_state(tcfg.opt, params),
+                       {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = ({k: v.cpu() for k, v in p.items()}, float(m["loss"]),
+                    float(m["gnorm"]))
+    (pc, lc, gc), (pd, ld, gd) = out["cpu"], out[LM_DEVICE]
+    diff = max(float((pd[k] - pc[k]).abs().max()) for k in pc)
+    moved = sum(int(((pd[k] - pc[k]).abs() > 1e-5).sum()) for k in pc)
+    n = sum(v.numel() for v in pc.values())
+    assert math.isclose(ld, lc, rel_tol=1e-5), (ld, lc)
+    assert math.isclose(gd, gc, rel_tol=1e-4), (gd, gc)
+    assert diff <= 2 * lr + 1e-6, diff
+    log(f"train {cfg.name} (smoke, f32, 2 microbatches) card against the "
+        f"CPU: loss {ld:.7f} / {lc:.7f}, gnorm {gd:.6f} / {gc:.6f}; params "
+        f"max |diff| {diff:.3g} (bound 2 lr + 1e-6 = {2 * lr + 1e-6:.3g}), "
+        f"{moved} of {n} beyond 1e-5")
+
+
+def train_flops(cfg, n_seq: int, seq: int) -> tuple:
+    """(matrix-product flops in the compute dtype, attention flops in f32)
+    of one train step under full remat: the forward, the layers' forward
+    again in the backward pass, and the backward (twice a forward). The
+    attention counts its causal half: QK^T and PV, 2 S^2 H Dh per layer
+    and sequence."""
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    H, KV, Dh, F = cfg.n_heads, cfg.n_kv, cfg.d_head, cfg.d_ff
+    tokens = n_seq * seq
+    layer = D * H * Dh + 2 * D * KV * Dh + H * Dh * D + 3 * D * F
+    mm_layers = 2.0 * tokens * L * layer
+    mm_head = 2.0 * tokens * D * V
+    attn = 2.0 * L * n_seq * seq * seq * H * Dh
+    return 4 * mm_layers + 3 * mm_head, 4 * attn
+
+
+def phase_train() -> dict:
+    """Dense training on the card: ``TRAIN_ARCH`` at its published width
+    (f32 master, bf16 compute, remat full) at ``train_4k``'s sequence
+    length, the global batch cut from 256 to ``TRAIN_BATCH`` sequences,
+    through ``launch.steps.build_train_step`` with the cell's deployment
+    (``resolve_deploy``: one sequence per microbatch, AdamW, a bf16
+    gradient accumulator), ``TRAIN_STEPS`` steps: ms per step (CUDA
+    events), tokens/s, peak memory and the step's FLOP bound. The loss and
+    gnorm finite, every parameter changed; a checkpoint after
+    ``TRAIN_SAVE_AT`` steps, restored into a fresh tree, takes the
+    remaining steps as the uninterrupted run did (bitwise or within the
+    AdamW rule, as printed). Then the card against the CPU at f32 on a
+    ``TRAIN_CHECK_LAYERS``-layer full-width model over ``TRAIN_CHECK_SEQ``
+    tokens. No GSON kernel runs on this path. Returns its launches."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch import steps
+    from repro_torch.models.common import SHAPES, ShapeCfg
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.trainer import grad_fn
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    zero_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    assert (cfg.remat, cfg.param_dtype, cfg.compute_dtype) == (
+        "full", torch.float32, torch.bfloat16)
+    seq = SHAPES["train_4k"].seq_len
+    shape = ShapeCfg("train_4k", seq, TRAIN_BATCH, "train")
+    dep = steps.resolve_deploy(steps.deploy_for(cfg.name, "train_4k"), shape)
+    assert (dep.microbatches, dep.optimizer) == (TRAIN_BATCH, "adamw"), dep
+    bundle = get_bundle(cfg)
+    step, _, tcfg = steps.build_train_step(bundle, None, None, dep)
+    params = bundle.init(0, device=LM_DEVICE)
+    opt = init_opt_state(tcfg.opt, params)
+    first = {k: v.clone() for k, v in params.items()}
+    batches = [synthetic_batch(cfg, shape, step=i, seed=0, device=LM_DEVICE)
+               for i in range(TRAIN_STEPS)]
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = CheckpointManager(str(ckpt_dir), keep=1)
+    ms, losses, gnorms = [], [], []
+    for i, batch in enumerate(batches):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        params, opt, m = step(params, opt, batch)
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+        if i + 1 == TRAIN_SAVE_AT:    # the host copy now, the write on
+            t0 = time.perf_counter()   # a thread beside the next steps
+            ckpt.save_async((params, opt), i + 1)
+            save_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    # where a microbatch's time goes: one sequence's gradient, profiled
+    gfn = grad_fn(bundle)
+    one = {k: v[:1] for k, v in batches[0].items()}
+    gfn(params, one)
+    pwall, busy, n_ops, kernels, _ = profile_window(lambda: gfn(params, one))
+    same = [k for k in params if torch.equal(first[k], params[k])]
+    assert not same, f"parameters unchanged by {TRAIN_STEPS} steps: {same}"
+    del first
+    mm, attn = train_flops(cfg, TRAIN_BATCH, seq)
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    bf16_ms = (mm + attn) / BF16_FLOPS * 1e3
+    typed_ms = (mm / BF16_FLOPS + attn / FP32_FLOPS) * 1e3
+    log(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {sum(v.numel() for v in params.values())} "
+        f"parameters (f32 master, bf16 compute, remat {cfg.remat}); "
+        f"{TRAIN_BATCH} sequences of {seq} tokens per step (train_4k's "
+        f"global batch of 256 cut to {TRAIN_BATCH}), {dep.microbatches} "
+        f"microbatches, {tcfg.opt.name}, {tcfg.accum_dtype} accumulator")
+    log(f"train {cfg.name}: losses {[round(x, 4) for x in losses]}, gnorms "
+        f"{[round(x, 3) for x in gnorms]}; step ms (CUDA events) "
+        f"{[round(x, 1) for x in ms]}: {step_ms:.1f} ms per step after the "
+        f"first = {TRAIN_BATCH * seq / step_ms * 1e3:.0f} tokens/s; peak "
+        f"device memory {peak / 2**30:.2f} GiB; the step's FLOP bound "
+        f"{bf16_ms:.1f} ms at the dense bf16 peak ({(mm + attn) / 1e12:.1f} "
+        f"TFLOP: {mm / 1e12:.1f} in matrix products, {attn / 1e12:.1f} in "
+        f"attention, remat forward counted) = {100 * bf16_ms / step_ms:.1f}% "
+        f"of the step; with the attention at the f32 peak (the port computes "
+        f"it in f32, as JAX does) {typed_ms:.1f} ms = "
+        f"{100 * typed_ms / step_ms:.1f}%  [{card}]")
+
+    if busy <= 0:
+        log("train profile: not measured (no device time recorded)")
+    else:
+        log(f"train profile (the gradient of one {seq}-token microbatch: "
+            f"forward, remat forward, backward): wall {pwall * 1e3:.1f} ms, "
+            f"device busy {busy * 1e3:.1f} ms = {100 * busy / pwall:.1f}%, "
+            f"{n_ops} device ops")
+        for name, (cnt, us) in sorted(kernels.items(),
+                                      key=lambda kv: -kv[1][1])[:8]:
+            log(f"  {us / 1e3:9.1f} ms  {cnt:6d} launches  {name[:80]}")
+
+    # resume from the checkpoint: the remaining steps as the run above
+    fresh = bundle.init(1, device=LM_DEVICE)
+    t0 = time.perf_counter()
+    (p2, o2), at, _ = ckpt.restore((fresh, init_opt_state(tcfg.opt, fresh)))
+    restore_s = time.perf_counter() - t0
+    assert at == TRAIN_SAVE_AT and int(o2["step"]) == TRAIN_SAVE_AT
+    resumed = []
+    for batch in batches[TRAIN_SAVE_AT:]:
+        p2, o2, m = step(p2, o2, batch)
+        resumed.append(float(m["loss"]))
+    bitwise = all(torch.equal(p2[k], params[k]) for k in params) and all(
+        torch.equal(o2[s][k], opt[s][k]) for s in ("m", "v") for k in params)
+    diff = max(float((p2[k] - params[k]).abs().max()) for k in params)
+    rule = 2 * tcfg.opt.lr * (TRAIN_STEPS - TRAIN_SAVE_AT) + 1e-6
+    assert diff <= rule, f"resumed params {diff} from the run's, bound {rule}"
+    assert all(math.isclose(a, b, rel_tol=1e-5) for a, b in
+               zip(resumed, losses[TRAIN_SAVE_AT:])), (resumed, losses)
+    log(f"train resume: checkpoint of (params, opt_state) at step "
+        f"{TRAIN_SAVE_AT}: its host copy {save_s:.1f} s (the write ran "
+        f"beside the next steps), restored in {restore_s:.1f} s; steps {TRAIN_SAVE_AT + 1}-{TRAIN_STEPS} losses "
+        f"{[round(x, 6) for x in resumed]} against "
+        f"{[round(x, 6) for x in losses[TRAIN_SAVE_AT:]]}; parameters and "
+        f"moments {'bitwise equal' if bitwise else 'not bitwise equal'} "
+        f"to the uninterrupted run's (max |diff| {diff:.3g}, bound "
+        f"{rule:.3g})")
+    del p2, o2, params, opt, fresh, batches
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at f32, TRAIN_CHECK_LAYERS layers
+    c32 = cfg.replace(n_layers=TRAIN_CHECK_LAYERS, compute_dtype=torch.float32)
+    b32 = get_bundle(c32)
+    host = b32.init(0, device="cpu")
+    batch = synthetic_batch(c32, ShapeCfg("t", TRAIN_CHECK_SEQ, 1, "train"),
+                            seed=1, device="cpu")
+    gfn = grad_fn(b32)
+    (lc, _), gc = gfn(host, batch)
+    (ld, _), gd = gfn({k: v.to(LM_DEVICE) for k, v in host.items()},
+                      {k: v.to(LM_DEVICE) for k, v in batch.items()})
+    rel = {k: float((gd[k].cpu() - gc[k]).abs().max() / gc[k].abs().max()
+                    .clamp_min(1e-30)) for k in gc}
+    worst = max(rel, key=rel.get)
+    assert math.isclose(float(ld), float(lc), rel_tol=TRAIN_LOSS_TOL), (
+        float(ld), float(lc))
+    assert rel[worst] <= TRAIN_GRAD_TOL, (worst, rel[worst])
+    log(f"train {c32.name} ({TRAIN_CHECK_LAYERS} layers, full width, f32, "
+        f"{TRAIN_CHECK_SEQ} tokens) card against the CPU: loss "
+        f"{float(ld):.7f} / {float(lc):.7f} (rel tol {TRAIN_LOSS_TOL}); "
+        f"gradients within {rel[worst]:.3g} of each parameter's largest "
+        f"(worst {worst}; tol {TRAIN_GRAD_TOL})")
+    del host, gc, gd
+    torch.cuda.empty_cache()
+
+    launches = read_counters("train path", ())
+    assert all(n == 0 for n in launches.values()), (
+        f"GSON kernels launched on the train path: {launches}")
+    log(f"train path launches: {launches} (none of the GSON kernels); phase "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return {"train": launches}
 
 
 def profile_window(run):
@@ -2186,29 +2529,40 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[fn.__name__[len("phase_"):]] = round(
+            time.perf_counter() - t, 1)
+        return out
+
     try:
-        phase_environment()
-        phase_build()
-        results = phase_kernels()
-        launches, multi_rate = phase_main_path()
-        phase_paired_timing()
-        phase_fleet_kernels()
-        fleet = phase_fleet()
-        phase_checkpoint()
-        phase_slab_kernels()
+        timed(phase_environment)
+        timed(phase_build)
+        results = timed(phase_kernels)
+        launches, multi_rate = timed(phase_main_path)
+        timed(phase_paired_timing)
+        timed(phase_fleet_kernels)
+        fleet = timed(phase_fleet)
+        timed(phase_checkpoint)
+        timed(phase_slab_kernels)
         paths = {"main": launches,
                  "fleet": {k: sum(f[2][SHARED.get(k, k)]
                                   for f in fleet.values()) for k in launches},
-                 "sparse": phase_sparse_session(),
-                 "auto": phase_auto(),
-                 "single": phase_single(multi_rate),
-                 "ann": phase_ann()}
-        paths["paper"], paper, paper_capacity = phase_paper()
-        paths["serve"] = phase_serve({v: f[:2] for v, f in fleet.items()})
-        paths.update(phase_mesh())
-        phase_c2()
-        paths.update(phase_lm())
-        phase_profile()
+                 "sparse": timed(phase_sparse_session),
+                 "auto": timed(phase_auto),
+                 "single": timed(phase_single, multi_rate),
+                 "ann": timed(phase_ann)}
+        paths["paper"], paper, paper_capacity = timed(phase_paper)
+        paths["serve"] = timed(phase_serve,
+                               {v: f[:2] for v, f in fleet.items()})
+        paths.update(timed(phase_mesh))
+        timed(phase_c2)
+        paths.update(timed(phase_lm))
+        paths.update(timed(phase_train))
+        timed(phase_profile)
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2237,6 +2591,7 @@ def main() -> int:
                   "bound_ms": paper[name]["bound"],
                   "max_abs_err": paper[name]["err"]},
     } for name, r in results.items()]
+    log(f"phase seconds: {seconds}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))

@@ -103,9 +103,12 @@ def _unflatten(tree, leaves: iter):
 
 
 def _to_host(leaf) -> np.ndarray:
+    """A host copy of the leaf: a later in-place update of the tree (a
+    train step writes its parameters in place) cannot reach a save still
+    in flight."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
 
 
 def _host_tree(tree) -> dict:

@@ -9,7 +9,9 @@ the same way, every array with a leading batch axis, plus its run carry
 behind, as the port gives each network its own RNG seam. The hash
 grid of ``repro.ann`` (``GridAux``) comes across as its four arrays plus
 its static ``dims``. An LM's parameters come across as a dict of numpy
-arrays under the JAX parameter names (``layers/wq``, ...).
+arrays under the JAX parameter names (``layers/wq``, ...), and its
+optimizer state as JAX's dict of such dicts (``m``/``v`` or ``vr``/``vc``)
+plus the ``step`` counter.
 """
 from __future__ import annotations
 
@@ -107,3 +109,22 @@ def lm_params_to_numpy(params: dict) -> dict:
     return {name: (t.detach().float() if t.dtype == torch.bfloat16
                    else t.detach()).cpu().numpy()
             for name, t in params.items()}
+
+
+def opt_state_from_numpy(arrays: dict, device="cuda") -> dict:
+    """An LM optimizer's state on ``device`` from JAX's
+    (``jax.device_get`` of ``init_opt_state``'s or ``apply_update``'s
+    state): each moment dict in f32, ``step`` a 0-d int32 tensor."""
+    return {key: (torch.tensor(np.asarray(v), dtype=torch.int32,
+                               device=device) if key == "step" else
+                  {name: torch.tensor(np.asarray(a, dtype=np.float32),
+                                      device=device)
+                   for name, a in v.items()})
+            for key, v in arrays.items()}
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The optimizer state as numpy arrays on the host, in JAX's layout."""
+    return {key: (np.asarray(v.detach().cpu().numpy()) if key == "step"
+                  else lm_params_to_numpy(v))
+            for key, v in state.items()}

@@ -88,7 +88,8 @@ class ModelConfig:
     # --- numerics / partitioning ---
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    remat: str = "full"          # "full" | "none" (no backward pass here)
+    remat: str = "full"          # "full" | "none": checkpoint each layer
+    #                              while gradients are taken
     attn_chunk: int = 512        # blockwise attention KV chunk
     # long-context capability marker (sub-quadratic path exists)
     subquadratic: bool = False

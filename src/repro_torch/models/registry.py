@@ -8,8 +8,9 @@
   init_cache / decode_step / prefill     — serving
   cache_shapes / input_specs(shape)      — ``meta`` tensors (no memory)
 
-It serves the ``dense`` and ``vlm`` families. ``moe`` (ROADMAP A15c),
-``ssm`` and ``hybrid`` (A15d) and ``encdec`` (A15e) raise
+It serves the ``dense``, ``vlm`` and ``moe`` families (the MoE FFN on
+its dense reference path, ``repro_torch.models.moe``). ``ssm`` and
+``hybrid`` (ROADMAP A15d) and ``encdec`` (A15e) raise
 ``NotImplementedError``, as do ``param_specs`` and any ``mesh`` (A15f).
 """
 from __future__ import annotations
@@ -23,7 +24,6 @@ from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig, ParamSet, ShapeCfg
 
 _NOT_PORTED = {
-    "moe": "the MoE family (models/moe.py) is not ported yet: ROADMAP A15c",
     "ssm": "the SSM family (models/ssm.py, ssm_lm.py) is not ported yet: "
            "ROADMAP A15d",
     "hybrid": "the hybrid family (models/hybrid.py) is not ported yet: "
@@ -122,7 +122,7 @@ def _dense_forward(params, cfg, batch, mesh=None):
 
 def get_bundle(cfg: ModelConfig) -> ModelBundle:
     fam = cfg.family
-    if fam in ("dense", "vlm"):
+    if fam in ("dense", "moe", "vlm"):
         return ModelBundle(
             cfg, transformer.dense_param_set(cfg),
             _dense_loss, _dense_forward,

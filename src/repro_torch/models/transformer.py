@@ -1,13 +1,18 @@
-"""Decoder-only transformer LM of the port: the dense GQA family and the
-VLM image prefix (``repro.models.transformer``'s counterpart).
+"""Decoder-only transformer LM of the port: the dense GQA family, the MoE
+FFN and the VLM image prefix (``repro.models.transformer``'s
+counterpart).
 
 Parameters are layer-stacked (a leading L axis, ``layers/*``), as in the
-JAX package; a Python loop over L takes the place of ``lax.scan``, and
-``cfg.remat`` is ignored (there is no backward pass on this path). Every
-call casts the parameters it reads to ``cfg.compute_dtype``, as JAX does
-inside each jitted call; on a tree already in that dtype the cast is
-free (``ServeEngine`` holds such a copy). The embedding rows are
-gathered before the cast, which gives the cast table's rows bitwise
+JAX package; a Python loop over L takes the place of ``lax.scan``. Under
+``cfg.remat == "full"`` the full-sequence forward wraps each layer in
+``torch.utils.checkpoint`` (as JAX wraps its scan body in
+``jax.checkpoint``), but only while gradients are being taken: a call
+under ``torch.no_grad`` or on parameters that need no gradient (serving)
+runs the layers as they are. Every call casts the parameters it reads to
+``cfg.compute_dtype``, as JAX does inside each jitted call; gradients
+reach an f32 master through that cast. On a tree already in that dtype
+the cast is free (``ServeEngine`` holds such a copy). The embedding rows
+are gathered before the cast, which gives the cast table's rows bitwise
 without casting the whole table.
 
 ``decode_step`` writes the new keys and values into the cache it is
@@ -17,11 +22,16 @@ clone. Like JAX, it writes every row at position ``length[0]`` (the
 serving engine's lockstep invariant), from a device index, while rope
 uses each row's own ``length``.
 
-The MoE FFN (ROADMAP A15c) and any ``mesh`` (ROADMAP A15f) raise.
+The FFN is pluggable: the MoE family (``repro_torch.models.moe``) runs
+its dense reference path here and returns its router's load-balance
+loss, which ``loss_fn`` adds. Any ``mesh`` (ROADMAP A15f) raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ModelConfig, ParamSet, apply_rope,
@@ -69,8 +79,8 @@ def _ffn_params(ps: ParamSet, cfg: ModelConfig):
         ps.add("layers/w_up", (L, D, F), ("layer", "embed", "mlp"))
         ps.add("layers/w_down", (L, F, D), ("layer", "mlp", "embed"))
     elif cfg.family == "moe":
-        raise NotImplementedError(
-            "the MoE FFN (models/moe.py) is not ported yet: ROADMAP A15c")
+        from repro_torch.models.moe import moe_param_defs
+        moe_param_defs(ps, cfg)
     else:
         raise ValueError(cfg.family)
 
@@ -124,8 +134,8 @@ def mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
 def make_ffn(cfg: ModelConfig, mesh=None):
     no_mesh(mesh)
     if cfg.family == "moe":
-        raise NotImplementedError(
-            "the MoE FFN (models/moe.py) is not ported yet: ROADMAP A15c")
+        from repro_torch.models.moe import moe_ffn
+        return functools.partial(moe_ffn, cfg=cfg, mesh=mesh)
 
     def ffn(lp, x):  # the dense FFN has no auxiliary loss
         return mlp(lp, x), 0.0
@@ -171,9 +181,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     s = x.shape[1]
     cs = rope_tables(torch.arange(s, device=x.device), cfg.d_head,
                      cfg.rope_theta)
+    layer = decoder_layer
+    if cfg.remat == "full" and torch.is_grad_enabled() and any(
+            v.requires_grad for v in params.values()):
+        layer = functools.partial(checkpoint, decoder_layer,
+                                  use_reentrant=False)
     aux = 0.0
     for lp in _layers(params, cfg.compute_dtype):
-        x, a = decoder_layer(lp, cfg, x, cs, ffn)
+        x, a = layer(lp, cfg, x, cs, ffn)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(params, cfg), torch.as_tensor(

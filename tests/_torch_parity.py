@@ -230,3 +230,42 @@ def near_tie_free(signals, w, active, eps=1e-4):
     with np.errstate(invalid="ignore"):       # inf - inf: no third unit
         gaps = np.diff(d, axis=1)
     return np.all(np.nan_to_num(gaps, nan=np.inf) > eps, axis=1)
+
+
+# ---------------------------------------------------------------------------
+# the LM: one set of JAX weights in both packages
+
+def lm_pair(arch: str, key: int = 0, **overrides):
+    """(JAX cfg, bundle, params; port cfg, bundle, params) of ``arch``'s
+    smoke config from one set of weights, ``bundle.init(jax.random.key(
+    key))`` carried across through numpy. ``overrides`` replace config
+    fields in both (dtypes by name: ``compute_dtype="bfloat16"``)."""
+    from repro.configs import get_config as jax_get_config
+    from repro.models import registry as jreg
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+
+    def cfg_of(base, mod):
+        return base.replace(**{
+            k: getattr(mod, v) if isinstance(v, str) and k.endswith("dtype")
+            else v for k, v in overrides.items()})
+
+    jcfg = cfg_of(jreg.smoke_config(jax_get_config(arch)), jnp)
+    jb = jreg.get_bundle(jcfg)
+    arrays = jax.device_get(jb.init(jax.random.key(key)))
+    cfg = cfg_of(registry.smoke_config(get_config(arch)), torch)
+    tb = registry.get_bundle(cfg)
+    return (jcfg, jb, {k: jnp.asarray(v) for k, v in arrays.items()},
+            cfg, tb, convert.lm_params_from_numpy(arrays, cfg, device="cpu"))
+
+
+def lm_batches(jcfg, shape, steps, seed: int = 0):
+    """JAX's ``synthetic_batch`` for ``steps`` steps, in both packages:
+    [(JAX batch, port batch)] (the port's own token draws differ)."""
+    from repro.data.tokens import synthetic_batch
+    out = []
+    for i in steps:
+        jbatch = synthetic_batch(jcfg, shape, step=i, seed=seed)
+        out.append((jbatch, {k: torch.tensor(np.asarray(v))
+                             for k, v in jbatch.items()}))
+    return out

@@ -14,6 +14,7 @@ import torch
 from repro.models import attention as jattn
 from repro_torch.models import attention as attn
 
+torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -38,6 +38,10 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.models.transformer, repro_torch.models.registry\n"
         "import repro_torch.configs, repro_torch.data.tokens, "
         "repro_torch.launch, repro_torch.launch.serve\n"
+        "import repro_torch.training, repro_torch.training.optimizer, "
+        "repro_torch.training.trainer, repro_torch.training.compression, "
+        "repro_torch.launch.steps, repro_torch.launch.train, "
+        "repro_torch.models.moe\n"
         "from repro_torch.configs import all_configs\n"
         "all_configs()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -52,8 +56,7 @@ def test_import_loads_no_jax_and_no_repro():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [
         *PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-        ROOT / "examples" / "torch_surface_reconstruction.py",
-        ROOT / "examples" / "torch_serve_lm.py"]))
+        *(ROOT / "examples").glob("torch_*.py")]))
 def test_source_imports_no_jax_and_no_repro(path):
     src = (ROOT / path).read_text()
     assert not FORBIDDEN.search(src), f"{path} imports jax or repro"

@@ -1043,6 +1043,387 @@ def test_lm_serve_on_card_equals_the_cpu(cuda_device):
     assert served[1] == served[0]
 
 
+# ---------------------------------------------------------------------------
+# more paths that no record showed on the card (the "c4_" tests, which the
+# c2 phase of chip_smoke.py runs too), and the LM's train step on the card
+
+
+def _run_on_card(spec, seed):
+    """A Session of ``spec`` on the card: (state, stats), the state
+    finite with a symmetric edge table."""
+    st, stats = gson.run(spec, seed=seed)
+    assert st.w.is_cuda and stats.iterations > 0
+    act = st.active
+    assert bool(torch.isfinite(st.w[act]).all())
+    nbr = st.nbr.long()
+    for u in torch.nonzero(act).flatten().tolist()[:64]:
+        for v in nbr[u][nbr[u] >= 0].tolist():
+            assert u in nbr[v].tolist(), (u, v)
+    return st, stats
+
+
+def _rows_equal_through(stats, ref, horizon: int):
+    rows = [r for r in stats.history if r["iteration"] <= horizon]
+    rrows = [r for r in ref.history if r["iteration"] <= horizon]
+    assert rows and len(rows) == len(rrows)
+    for a, b in zip(rows, rrows):
+        assert (a["iteration"], a["units"], a["signals"]) == (
+            b["iteration"], b["units"], b["signals"]), (a, b)
+        assert math.isclose(a["qe"], b["qe"], rel_tol=1e-4), (a, b)
+
+
+def _search_card_equals_cpu(fw, st, n: int = 1024, seed: int = 0):
+    """``fw`` on the final pool of a card run, with the aux it builds,
+    against the same search on CPU copies of its inputs: ids bitwise on
+    signals without a near tie, distances within D_TOL."""
+    g = torch.Generator(device=st.w.device).manual_seed(seed)
+    sig = make_sampler("sphere")(g, n)
+    w, act = st.w, st.active
+    out = fw(sig, w, act, aux=fw.build(w, act))
+    cw, cact, csig = w.cpu(), act.cpu(), sig.cpu()
+    cpu = fw(csig, cw, cact, aux=fw.build(cw, cact))
+    ok = near_tie_free(csig, cw, cact)
+    assert int(ok.sum()) > 0.9 * n
+    for k in (0, 1):
+        assert torch.equal(out[k].cpu()[ok], cpu[k][ok]), k
+        torch.testing.assert_close(out[k + 2].cpu(), cpu[k + 2], **D_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["multi", "multi-fused"])
+def test_c4_indexed_backend_in_multi_on_card(cuda_device, variant):
+    """The ``indexed`` backend (the grid with its exhaustive fallback,
+    rebuilt on the refresh cadence) inside ``multi``/``multi-fused`` on
+    the card: a healthy network, and its search on the grown pool equal
+    to the CPU's."""
+    spec = gson.RunSpec(variant=variant, backend="indexed", capacity=1024,
+                        max_iterations=64, check_every=8)
+    st, stats = _run_on_card(spec, seed=3)
+    assert stats.iterations == 64 and stats.units > 100
+    _search_card_equals_cpu(gson.resolve_backend("indexed").find_winners, st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ann-windowed", "ann-grid"])
+def test_c4_ann_fleet_at_b4_on_card(cuda_device, backend):
+    """An ANN backend in a ``FleetSession`` at B = 4 on the card: each
+    network bitwise its own Session, and its rows those of the
+    ``reference`` backend through 32 iterations (both searches are exact
+    on these pools)."""
+    spec = gson.RunSpec(backend=backend, capacity=1024, max_iterations=32,
+                        check_every=8)
+    fleet = gson.FleetSession(gson.FleetSpec.broadcast(spec,
+                                                       seeds=range(4)))
+    fleet.run()
+    for i in range(4):
+        st, stats = fleet.result(i)
+        sess = gson.Session(spec, seed=i)
+        sess.run()
+        for row, srow in zip(stats.history, sess.stats.history,
+                             strict=True):
+            assert (row["iteration"], row["units"], row["signals"]) == (
+                srow["iteration"], srow["units"], srow["signals"]), i
+            assert row["qe"] == pytest.approx(srow["qe"], rel=1e-6), i
+        for name in _STATE_FIELDS:
+            assert torch.equal(getattr(st, name),
+                               getattr(sess.state, name)), (i, name)
+        _, ref = gson.run(spec.replace(backend="reference"), seed=i)
+        _rows_equal_through(stats, ref, 32)
+
+
+@pytest.mark.cuda
+def test_c4_engine_indexed_on_card_equals_its_session(cuda_device):
+    from repro_torch.core.gson.engine import EngineConfig, GSONEngine
+    cfg = EngineConfig(variant="indexed", capacity=512, max_iterations=3,
+                       check_every=1, chunk=128)
+    with pytest.warns(DeprecationWarning):
+        engine = GSONEngine(cfg, "sphere")
+    assert engine.spec.device == "cuda"
+    state, stats = engine.run(seed=3)
+    sess = gson.Session(engine.spec, seed=3)
+    sess.run()
+    assert state.w.is_cuda and stats.signals == 3 * 128
+    assert stats.history == sess.stats.history
+    for name in _STATE_FIELDS:
+        assert torch.equal(getattr(state, name),
+                           getattr(sess.state, name)), name
+    from repro_torch.ann import indexed_find_winners
+    v = engine.spec.variant_config
+    _search_card_equals_cpu(indexed_find_winners(
+        v.grid_per_axis, v.per_cell_cap, v.bbox), state, n=256)
+
+
+@pytest.mark.cuda
+def test_c4_pointcloud_stream_and_noisy_sampler_on_card(cuda_device):
+    """The stream draws on the card as a pure function of (seed,
+    iteration), the noise from the same generator after the points; a
+    Session fed the noisy stream on ``cuda-full`` has the rows of the
+    ``reference`` backend through 16 iterations."""
+    from repro_torch.data.pointclouds import NoisySampler, PointCloudStream
+    s = PointCloudStream("torus", seed=3, noise=0.02)
+    a, b = s.signals(7, 64), s.signals(7, 64)
+    assert a.is_cuda and torch.equal(a, b) and a.shape == (64, 3)
+    assert not torch.equal(a, s.signals(8, 64))
+    g1 = torch.Generator(device=cuda_device).manual_seed(11)
+    g2 = torch.Generator(device=cuda_device).manual_seed(11)
+    noisy = NoisySampler(make_sampler("torus"), 0.02)(g1, 16)
+    clean = make_sampler("torus")(g2, 16)
+    assert torch.equal(noisy, clean + 0.02 * torch.randn(
+        16, 3, generator=g2, device=cuda_device))
+    spec = gson.RunSpec(sampler=PointCloudStream("sphere", noise=0.01),
+                        backend="cuda-full", capacity=1024,
+                        max_iterations=16, check_every=8)
+    counts = find_winners_top2.launches
+    st, stats = _run_on_card(spec, seed=1)
+    assert find_winners_top2.launches - counts == 16
+    _, ref = gson.run(spec.replace(backend="reference"), seed=1)
+    _rows_equal_through(stats, ref, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ann-windowed", "ann-grid"])
+def test_c4_ann_backend_at_a_second_recall_target_on_card(cuda_device, kind):
+    """``ann_backend(kind, 0.8)`` on the card: rows of the ``reference``
+    backend through 64 iterations, and its search on the grown pool equal
+    to the CPU's."""
+    be = gson.ann_backend(kind, 0.8)
+    spec = gson.RunSpec(backend=be, capacity=1024, max_iterations=64,
+                        check_every=8)
+    st, stats = _run_on_card(spec, seed=2)
+    _, ref = gson.run(spec.replace(backend="reference"), seed=2)
+    _rows_equal_through(stats, ref, 64)
+    if kind == "ann-grid":
+        _search_card_equals_cpu(be.find_winners, st)
+
+
+def _lm_smoke(arch: str):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_bundle, smoke_config
+    bundle = get_bundle(smoke_config(get_config(arch)))
+    return bundle.cfg, bundle
+
+
+@pytest.mark.cuda
+def test_c4_vlm_on_card_equals_the_cpu(cuda_device):
+    """internvl2-76b at smoke size with its image prefix: prefill and three
+    decode steps on the card within 1e-4 of the CPU from one set of f32
+    weights, then a ``ServeEngine`` (its ``img_embeds`` stub) on each,
+    with the same greedy tokens."""
+    from repro_torch.serving import ServeConfig, ServeEngine
+    cfg, bundle = _lm_smoke("internvl2-76b")
+    assert cfg.family == "vlm"
+    host = bundle.init(0, device="cpu")
+    card = {k: v.to(cuda_device) for k, v in host.items()}
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 9)).astype(
+        np.int32))
+    img = torch.from_numpy((0.1 * rng.standard_normal(
+        (2, cfg.n_img_tokens, cfg.d_model))).astype(np.float32))
+    out = []
+    for params, dev in ((host, "cpu"), (card, cuda_device)):
+        t = toks.to(dev)
+        cache, logits = bundle.prefill(
+            params, {"tokens": t[:, :6], "img_embeds": img.to(dev)},
+            max_len=cfg.n_img_tokens + 9)
+        steps = [logits]
+        for j in range(6, 9):
+            cache, logits = bundle.decode_step(params, cache, t[:, j:j + 1])
+            steps.append(logits)
+        out.append(torch.stack(steps).cpu())
+    torch.testing.assert_close(out[1], out[0], rtol=1e-4, atol=1e-4)
+    served = []
+    for params in (host, card):
+        eng = ServeEngine(bundle, params,
+                          ServeConfig(batch=4, max_len=48, eos_id=-1))
+        r = np.random.default_rng(1)
+        for i in range(5):
+            eng.submit(r.integers(2, cfg.vocab, size=int(r.integers(
+                1, 9))), rid=i, max_tokens=5)
+        served.append({q.rid: q.out for q in eng.run()})
+    assert served[1] == served[0]
+
+
+@pytest.mark.cuda
+def test_c4_serve_engine_at_temperature_on_card(cuda_device):
+    """Sampling at temperature > 0 on the card: the Gumbel-max draws of
+    one logits row, 20000 times, follow ``softmax(logits / T)`` (each
+    token's frequency within 0.01 of its probability); a seeded engine
+    serves the same tokens twice; at T = 1e-6 it serves the greedy
+    tokens."""
+    from repro_torch.serving import ServeConfig, ServeEngine
+    cfg, bundle = _lm_smoke("qwen1.5-0.5b")
+    params = bundle.init(0, device=cuda_device)
+    eng = ServeEngine(bundle, params, ServeConfig(temperature=0.8),
+                      rng=torch.Generator(device=cuda_device).manual_seed(5))
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    row = torch.randn(cfg.vocab, generator=g, device=cuda_device) * 2
+    draws = eng._sample(row.expand(20000, -1))
+    freq = torch.bincount(draws.long(), minlength=cfg.vocab).float() / 20000
+    prob = torch.softmax(row / 0.8, dim=-1)
+    assert float((freq - prob).abs().max()) < 0.01
+
+    def serve(temperature, seed):
+        e = ServeEngine(bundle, params, ServeConfig(
+            batch=4, max_len=32, eos_id=-1, temperature=temperature),
+            rng=torch.Generator(device=cuda_device).manual_seed(seed))
+        r = np.random.default_rng(2)
+        for i in range(6):
+            e.submit(r.integers(2, cfg.vocab, size=5), rid=i, max_tokens=6)
+        return {q.rid: q.out for q in e.run()}
+
+    hot = serve(0.8, 7)
+    assert hot == serve(0.8, 7)
+    assert all(0 <= t < cfg.vocab for out in hot.values() for t in out)
+    assert serve(1e-6, 7) == serve(0.0, 7)
+
+
+def _script(args, timeout=300):
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, *args], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=timeout)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    return out.stdout
+
+
+@pytest.mark.cuda
+def test_c4_launch_serve_on_card_equals_the_cpu(cuda_device):
+    """``python -m repro_torch.launch.serve`` on the card (the smoke
+    config, greedy): every request served, the tokens those of a CPU
+    engine on the same weights; at temperature 0.7 too (a run on the card
+    from the same seeds serves the same tokens again)."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serving import ServeConfig, ServeEngine
+    argv = ["--smoke", "--requests", "6", "--max-tokens", "6"]
+    line = _script(["-m", "repro_torch.launch.serve", *argv])
+    assert "[serve] qwen1.5-0.5b: 6 requests, 36 tokens" in line
+    done = {r.rid: r.out for r in launch_serve.main(argv)}
+    cfg, bundle = _lm_smoke("qwen1.5-0.5b")
+    host = {k: v.cpu() for k, v in bundle.init(0, device="cuda").items()}
+    eng = ServeEngine(bundle, host, ServeConfig(batch=4, max_len=128))
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        eng.submit(rng.integers(2, cfg.vocab, size=int(rng.integers(4, 17))),
+                   rid=i, max_tokens=6)
+    assert {r.rid: r.out for r in eng.run()} == done
+    hot = argv + ["--temperature", "0.7"]
+    first = {r.rid: r.out for r in launch_serve.main(hot)}
+    assert first == {r.rid: r.out for r in launch_serve.main(hot)}
+    assert all(len(o) == 6 for o in first.values())
+
+
+def _wave_is_greedy(bundle, master, done, batch):
+    """Each request of one wave of ``batch`` requests is the greedy
+    continuation of its left-padded prompt under the teacher-forced
+    forward at the compute dtype, wherever that forward's top-2 margin
+    exceeds twice its distance from the f32 forward (bf16's own rounding
+    error, the yardstick of chip_smoke.py's lm checks): (clear
+    positions, all positions)."""
+    from repro_torch.models.common import cast_params
+    from repro_torch.models.registry import get_bundle
+    reqs = sorted(done, key=lambda r: r.rid)
+    plen = max(len(r.prompt) for r in reqs)
+    n = max(len(r.out) for r in reqs)
+    toks = torch.zeros((batch, plen + n - 1), dtype=torch.int32)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):plen] = torch.from_numpy(r.prompt)
+        toks[i, plen:] = torch.tensor(r.out[:-1])
+    batch_in = {"tokens": toks.to(master["embed"].device)}
+    b32 = get_bundle(bundle.cfg.replace(compute_dtype=torch.float32))
+    with torch.no_grad():
+        lo, _ = bundle.forward(cast_params(master, bundle.cfg.compute_dtype),
+                               batch_in)
+        hi, _ = b32.forward(master, batch_in)
+    lo = lo[:, plen - 1:].float().cpu()
+    hi = hi[:, plen - 1:].float().cpu()
+    top2 = lo.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * (lo - hi).abs().amax(-1)
+    want = torch.tensor([r.out for r in reqs])
+    assert torch.equal(lo.argmax(-1)[clear], want[clear])
+    return int(clear.sum()), clear.numel()
+
+
+@pytest.mark.cuda
+def test_c4_serve_lm_example_on_card(cuda_device, capsys):
+    """``examples/torch_serve_lm.py`` at its default (qwen1.5-0.5b at the
+    published width, bf16) on the card: one wave of four requests served,
+    each the greedy continuation of its prompt under the forward."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_lm", ROOT / "examples" / "torch_serve_lm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    done = mod.main(["--requests", "4", "--max-tokens", "8"])
+    assert "[serve] qwen1.5-0.5b: 4 requests, 32 tokens" in \
+        capsys.readouterr().out
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_bundle
+    bundle = get_bundle(get_config("qwen1.5-0.5b"))
+    clear, total = _wave_is_greedy(bundle, bundle.init(0, device="cuda"),
+                                   done, batch=4)
+    assert clear >= total // 4, (clear, total)
+
+
+@pytest.mark.cuda
+def test_c4_quickstart_example_on_card(cuda_device):
+    """``examples/torch_quickstart.py`` on the card: the restored session
+    finishes, and the fleet's network equals its own session."""
+    out = _script(["examples/torch_quickstart.py", "--iters", "100"])
+    assert "checkpointed at iteration 50" in out
+    assert "network 1 equals its own session: True" in out
+
+
+@pytest.mark.cuda
+def test_c4_surface_reconstruction_example_on_card(cuda_device):
+    """``examples/torch_surface_reconstruction.py`` on the card
+    (``cuda-full``): its rows those of the ``reference`` backend through
+    iteration 50, and chi reported."""
+    def rows(out):
+        return [tuple(int(v) for v in re.findall(
+            r"(?:it|units|signals)=\s*(\d+)", line))
+            for line in out.splitlines() if line.strip().startswith("it=")]
+
+    argv = ["examples/torch_surface_reconstruction.py", "--iters", "50"]
+    card = _script(argv)
+    ref = _script(argv + ["--backend", "reference"])
+    assert "Euler characteristic" in card
+    a = [r for r in rows(card) if r[0] <= 50]
+    assert a and a == [r for r in rows(ref) if r[0] <= 50]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen2-moe-a2.7b"])
+def test_lm_train_step_on_card_equals_the_cpu(cuda_device, arch):
+    """One train step of the smoke config (f32, AdamW, two microbatches)
+    on the card and on the CPU from one set of weights: the loss within
+    1e-5, the gradient norm within 1e-4, and the parameters within 2 lr
+    (AdamW's first step is about lr sign(g))."""
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models.common import ShapeCfg
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.trainer import TrainConfig, make_train_step
+    cfg, bundle = _lm_smoke(arch)
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3), microbatches=2)
+    step = make_train_step(bundle, tcfg=tcfg)
+    batch = synthetic_batch(cfg, ShapeCfg("t", 32, 4, "train"), device="cpu")
+    host = bundle.init(0, device="cpu")
+    card = {k: v.to(cuda_device, copy=True) for k, v in host.items()}
+    out = {}
+    for where, params in (("cpu", host), ("card", card)):
+        dev = params["embed"].device
+        p, _, m = step(params, init_opt_state(tcfg.opt, params),
+                       {k: v.to(dev) for k, v in batch.items()})
+        out[where] = (p, float(m["loss"]), float(m["gnorm"]))
+    assert out["card"][1] == pytest.approx(out["cpu"][1], rel=1e-5)
+    assert out["card"][2] == pytest.approx(out["cpu"][2], rel=1e-4)
+    for k in host:
+        assert out["card"][0][k].device.type == cuda_device.type
+        diff = (out["card"][0][k].cpu() - out["cpu"][0][k]).abs().max()
+        assert float(diff) <= 2 * tcfg.opt.lr + 1e-6, k
+
+
 def test_non_cpu_tensors_never_take_the_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises."""
     sig = torch.zeros((1, 4, 3), device="meta")

@@ -29,6 +29,7 @@ from repro_torch.models import registry
 from repro_torch.models.common import SMOKE_SHAPES, cast_params
 from repro_torch.utils import tree_bytes, tree_param_count
 
+torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-4)
 SMOKE_ARCHS = ("qwen1.5-0.5b", "granite-3-2b", "internvl2-76b")
 FULL_DECODERS = ("qwen1.5-0.5b", "granite-3-2b", "yi-34b", "llama3-405b",
@@ -292,7 +293,6 @@ def test_configs_equal_jax_field_by_field(arch):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("qwen2-moe-a2.7b", "A15c"), ("qwen3-moe-235b-a22b", "A15c"),
     ("mamba2-2.7b", "A15d"), ("zamba2-2.7b", "A15d"),
     ("whisper-medium", "A15e")])
 def test_unported_families_raise(arch, item):

@@ -19,6 +19,8 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models.registry import get_bundle, smoke_config
 from repro_torch.serving import ServeConfig, ServeEngine
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def served():
@@ -211,8 +213,8 @@ def test_a_mesh_raises(served):
         ServeEngine(bundle, params, ServeConfig(), mesh=object())
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-2.7b",
-                                  "zamba2-2.7b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
+                                  "whisper-medium"])
 def test_an_unported_family_raises(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         launch_serve.main(["--smoke", "--device", "cpu", "--arch", arch])
