@@ -141,8 +141,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    0, ``python -m repro_torch.launch.serve``, and the three examples
    (``torch_serve_lm``, ``torch_quickstart``,
    ``torch_surface_reconstruction``), each against the CPU or the port's
-   own reference path; and a smoke train step on the card against the
-   CPU (``lm_train``); run by pytest in a child process.
+   own reference path; a smoke train step on the card against the CPU
+   (``lm_train``); and the SSM, hybrid and enc-dec smoke configs on the
+   card against the CPU (``families_on_card``); run by pytest in a child
+   process.
 17. lm — the LM substrate, which launches none of the GSON kernels (every
    counter set to 0 before and 0 after): ``LM_ARCH`` (qwen1.5-0.5b) at its
    published width from random weights, a ``ServeEngine`` of
@@ -165,7 +167,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    design's), prefill + decode against the forward at f32 on a 2-layer
    full-width model, and one smoke-size MoE train step on the card
    against the CPU. Its memory is freed before the next phase.
-18. train — ``TRAIN_ARCH`` (qwen1.5-0.5b) trained at full width (f32
+18. families — the SSM, hybrid and enc-dec families (``FAM_ARCHS``:
+   mamba2-2.7b, zamba2-2.7b, whisper-medium), one model at a time with
+   its memory freed in between, every counter set to 0 before and 0
+   after: each at its published width (random weights from ``SEED``, f32
+   master, bf16 compute) serving the lm phase's requests (whisper on the
+   engine's zero frames; 2 waves, 62 decode steps, asserted): tokens/s,
+   prefill ms per wave and decode ms per step (CUDA events), the device's
+   busy share over ``LM_PROFILE_STEPS`` decode steps, peak memory and
+   the decode step's bytes bound (the bf16 weights it reads, the hybrid's
+   shared block once per invocation, plus the cache, each SSM state and
+   conv tail read and written, over HBM's rate). Then prefill + decode
+   against the forward at f32 on the full-width model cut to
+   ``FAM_DEPTH`` (mamba2 2 layers, zamba2 12, whisper 2 + 2), over
+   ``FAM_PROMPT_LEN`` = 1024 tokens (four SSD chunks of 256) or, for
+   whisper, over its 1500 frames (rtol = atol = ``LM_F32_TOL``); and the
+   card against the CPU from the same f32 weights (rtol = atol =
+   ``LM_CARD_CPU_TOL``).
+19. train — ``TRAIN_ARCH`` (qwen1.5-0.5b) trained at full width (f32
    master, bf16 compute, remat full) on ``train_4k``'s 4096-token
    sequences, the global batch cut to ``TRAIN_BATCH``, through
    ``launch.steps.build_train_step`` with the cell's deployment (one
@@ -176,15 +195,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    rest (bitwise or within 2 lr per step, as printed); the card against
    the CPU on a 2-layer full-width model (loss within 1e-5, gradients
    within 1e-4 of each parameter's largest). Every counter reads 0.
-19. profile — where the main path's time goes (``torch.profiler``):
+20. profile — where the main path's time goes (``torch.profiler``):
    device busy share and top kernels at B = 1, then device ops and
    device time per iteration and the busy share of the fleet at B = 8,
    whose window must show one launch of each of the port's device
    kernels per fleet iteration (a profiler that records nothing prints
    "not measured" instead).
-20. report — the ``kernels`` JSON line (each kernel's launches on the main
+21. report — the ``kernels`` JSON line (each kernel's launches on the main
    path, under ``paths`` on every path driven with the counters set to 0
-   before and read after (``lm`` and ``train`` among them, all 0), under ``paper`` the capacity that phase
+   before and read after (``lm``, ``families`` and ``train`` among
+   them, all 0), under ``paper`` the capacity that phase
    13 ran and its launches, ms and bound there, and for B1 under
    ``shapes`` phase 3's m = 1 and dense-pool figures), the card's line,
    and last ``{"ok": true, "device": {...}}``.
@@ -1836,6 +1856,19 @@ LM_DEVICE = "cuda"
 # the MoE model served at full width in bf16 (DEPLOY's serve_bf16)
 LM_MOE_ARCH = "qwen2-moe-a2.7b"
 
+# the families phase: the SSM, hybrid and enc-dec models served at full
+# width one at a time on the lm phase's requests; their prefill + decode
+# against the forward at f32 on full-width models cut to FAM_DEPTH, over a
+# prompt of FAM_PROMPT_LEN tokens (four SSD chunks of 256; whisper: the lm
+# phase's prompt over encoder_ctx frames) with the forward over
+# FAM_FORWARD_LEN tokens (whole chunks); the card against the CPU over a
+# prompt of FAM_CARD_CPU_LEN tokens
+FAM_ARCHS = ("mamba2-2.7b", "zamba2-2.7b", "whisper-medium")
+FAM_DEPTH = {"mamba2-2.7b": dict(n_layers=2),
+             "zamba2-2.7b": dict(n_layers=12),
+             "whisper-medium": dict(n_layers=2, n_encoder_layers=2)}
+FAM_PROMPT_LEN, FAM_FORWARD_LEN, FAM_CARD_CPU_LEN = 1024, 1280, 512
+
 # the train phase: the model trained at full width, train_4k's sequence
 # length with the global batch cut from 256 to TRAIN_BATCH sequences,
 # TRAIN_STEPS steps with a checkpoint after TRAIN_SAVE_AT; the card
@@ -1853,9 +1886,10 @@ BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 # engine shim, autotune's cache, cuda-auto in a Session, a cuda-sparse
 # fleet at B = 4), TF32's refusal by the windowed search, the grid's
 # own answer on a dense pool, a served poisoned job on the card, and the
-# LM smoke config on the card against the CPU (ServeEngine's device paths)
+# LM smoke configs on the card against the CPU (ServeEngine's device paths,
+# the SSM, hybrid and enc-dec families among them)
 C2_TESTS = ("c2_", "tf32", "grid_on_card", "serve_on_card", "lm_serve",
-            "c4_", "lm_train")
+            "c4_", "lm_train", "families_on_card")
 
 
 def phase_c2():
@@ -1881,26 +1915,41 @@ def lm_prompts(n: int, vocab: int, seed: int = 0, lo: int = 4, hi: int = 17):
             for _ in range(n)]
 
 
-def lm_path_check(bundle, params, device, steps: int = LM_DECODE):
-    """Prefill of ``LM_PROMPTS`` prompts of ``LM_PROMPT_LEN`` tokens, then
-    ``steps`` decode steps, beside the teacher-forced forward over the
-    whole sequence: (the logits of each step, (steps + 1, B, V) in f32;
-    the forward's logits at those positions)."""
+def lm_path_check(bundle, params, device, steps: int = LM_DECODE,
+                  prompt_len: int = LM_PROMPT_LEN,
+                  forward_len: int | None = None):
+    """Prefill of ``LM_PROMPTS`` prompts of ``prompt_len`` tokens (an
+    enc-dec model over ``encoder_ctx`` frames of 0.02 * N(0, 1)), then
+    ``steps`` decode steps, beside the teacher-forced forward over
+    ``forward_len`` tokens (``prompt_len + steps`` by default; 0: no
+    forward): (the logits of each step, (steps + 1, B, V) in f32; the
+    forward's logits at those positions, or None)."""
     import numpy as np
     import torch
+    cfg = bundle.cfg
+    forward_len = prompt_len + steps if forward_len is None else forward_len
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(
-        2, bundle.cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN + steps)).astype(
-            np.int32)).to(device)
-    cache, logits = bundle.prefill(params, {"tokens": toks[:, :LM_PROMPT_LEN]},
-                                   max_len=LM_PROMPT_LEN + steps)
+        2, cfg.vocab, (LM_PROMPTS, max(forward_len, prompt_len + steps))
+    ).astype(np.int32)).to(device)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = torch.from_numpy((0.02 * rng.standard_normal(
+            (LM_PROMPTS, cfg.encoder_ctx, cfg.d_model))).astype(
+                np.float32)).to(device)
+    cache, logits = bundle.prefill(
+        params, {"tokens": toks[:, :prompt_len], **extra},
+        max_len=prompt_len + steps)
     out = [logits.float()]
     for j in range(steps):
-        at = LM_PROMPT_LEN + j
+        at = prompt_len + j
         cache, logits = bundle.decode_step(params, cache, toks[:, at:at + 1])
         out.append(logits.float())
-    ref, _ = bundle.forward(params, {"tokens": toks})
-    ref = ref[:, LM_PROMPT_LEN - 1:].float().transpose(0, 1)
+    if not forward_len:
+        return torch.stack(out), None
+    ref, _ = bundle.forward(params, {"tokens": toks[:, :forward_len],
+                                     **extra})
+    ref = ref[:, prompt_len - 1:prompt_len + steps].float().transpose(0, 1)
     return torch.stack(out), ref
 
 
@@ -2193,6 +2242,154 @@ def lm_moe(card: str) -> None:
     del m32, pd, fwd
     torch.cuda.empty_cache()
     smoke_train_step_card_vs_cpu(LM_MOE_ARCH)
+
+
+def fam_decode_bytes(bundle, compute_params) -> tuple:
+    """(weight bytes, cache bytes) one decode step moves at ``LM_BATCH``
+    x ``LM_MAX_LEN``: the compute-dtype weights it reads (no embedding
+    table, only its rows; no encoder and no cross K/V projections, whose
+    output is cached; the hybrid's shared block once per invocation),
+    and the cache: each SSM state and conv tail read and written, each
+    K/V read."""
+    from repro_torch.models.hybrid import n_shared_invocations
+    from repro_torch.utils import tree_bytes
+    cfg = bundle.cfg
+    skip = ("embed", "enc_final_norm", "layers/wk_c", "layers/wv_c")
+    weights = 0
+    for k, v in compute_params.items():
+        if k in skip or k.startswith("enc/"):
+            continue
+        reads = n_shared_invocations(cfg) if k.startswith("shared/") else 1
+        weights += reads * v.numel() * v.element_size()
+    cache = bundle.cache_shapes(LM_BATCH, LM_MAX_LEN)
+    state = tree_bytes({k: v for k, v in cache.items()
+                        if k in ("ssm", "hx", "hb", "hc")})
+    return weights, tree_bytes(cache) + state
+
+
+def phase_families() -> dict:
+    """The SSM, hybrid and enc-dec families on the card, one model at a
+    time with its memory freed before the next: each of ``FAM_ARCHS`` at
+    its published width (random weights from ``SEED``, f32 master, bf16
+    compute) served by ``ServeEngine`` on the lm phase's requests
+    (whisper on the engine's zero frames): tokens/s, prefill ms per wave
+    and decode ms per step (CUDA events), the device's share over
+    ``LM_PROFILE_STEPS`` decode steps, peak memory and the decode step's
+    bytes bound. Then prefill + decode against the forward at f32 on the
+    full-width model cut to ``FAM_DEPTH`` (rtol = atol = ``LM_F32_TOL``),
+    over ``FAM_PROMPT_LEN`` tokens (four SSD chunks) or, for whisper,
+    ``encoder_ctx`` frames; and the card against the CPU from the same
+    f32 weights (rtol = atol = ``LM_CARD_CPU_TOL``). No GSON kernel runs
+    on this path: every launch counter must read 0 after it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils import tree_bytes
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    zero_counters()
+    for arch in FAM_ARCHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        bundle = get_bundle(cfg)
+        t0 = time.perf_counter()
+        master = bundle.init(SEED, device=LM_DEVICE)
+        torch.cuda.synchronize()
+        log(f"families {cfg.name} ({cfg.family}): {cfg.n_layers} layers"
+            + (f" + {cfg.n_encoder_layers} encoder layers"
+               if cfg.family == "encdec" else "")
+            + f", d_model {cfg.d_model}, vocab {cfg.vocab}: "
+            f"{sum(v.numel() for v in master.values())} parameters "
+            f"({tree_bytes(master) / 1e9:.3f} GB f32), drawn in "
+            f"{time.perf_counter() - t0:.2f} s")
+        lm_serve(bundle, master, lm_prompts(2, cfg.vocab, seed=9), 2,
+                 f"{cfg.name} warm-up")
+        reqs = lm_prompts(LM_REQUESTS, cfg.vocab)
+        eng, wall, pre_ms, dec_ms = lm_serve(bundle, master, reqs,
+                                             LM_MAX_TOKENS, cfg.name)
+        assert (eng.prefills, eng.decode_steps) == (2, 62), (
+            cfg.name, eng.prefills, eng.decode_steps)
+        toks = sum(len(r.out) for r in eng.finished)
+        weights, cache_b = fam_decode_bytes(bundle, eng.compute_params)
+        bound, _ = bound_ms(weights + cache_b, 0)
+        log(f"families serve {cfg.name}: {LM_REQUESTS} requests (prompts "
+            f"4-16) x {LM_MAX_TOKENS} tokens, batch {LM_BATCH}, max_len "
+            f"{LM_MAX_LEN}: {eng.prefills} prefill waves, {eng.decode_steps} "
+            f"decode steps, {toks} tokens in {wall:.3f} s = "
+            f"{toks / wall:.1f} tokens/s; prefill {pre_ms:.3f} ms per wave, "
+            f"decode {dec_ms:.3f} ms per step (CUDA events); the decode "
+            f"step's bound {bound:.4f} ms (bf16 weights read {weights / 1e9:.3f}"
+            f" GB + cache/state {cache_b / 1e9:.3f} GB, at "
+            f"{HBM_BPS / 1e12} TB/s); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+        peng, _, _, _ = lm_serve(bundle, master, [], 1, "profile")
+        for i, p in enumerate(reqs[:LM_BATCH]):
+            peng.submit(p, rid=100 + i, max_tokens=LM_PROFILE_STEPS + 2)
+        peng.step()                               # drain, admit, prefill
+        peng.step()                               # one decode step, warm
+        pwall, busy, n_ops, kernels, _ = profile_window(
+            lambda: [peng.step() for _ in range(LM_PROFILE_STEPS)])
+        if busy <= 0:
+            log(f"families profile {cfg.name}: not measured (no device time "
+                f"recorded)")
+        else:
+            log(f"families profile {cfg.name} ({LM_PROFILE_STEPS} decode "
+                f"steps, batch {LM_BATCH}): wall "
+                f"{pwall * 1e3 / LM_PROFILE_STEPS:.3f} ms per step, device "
+                f"busy {busy * 1e3 / LM_PROFILE_STEPS:.3f} ms per step = "
+                f"{100 * busy / pwall:.1f}% ({100 - 100 * busy / pwall:.1f}% "
+                f"idle), {n_ops / LM_PROFILE_STEPS:.0f} device ops per step")
+            for name, (cnt, us) in sorted(kernels.items(),
+                                          key=lambda kv: -kv[1][1])[:4]:
+                log(f"  {us / LM_PROFILE_STEPS:9.1f} us/step  "
+                    f"{cnt / LM_PROFILE_STEPS:5.0f} per step  {name[:80]}")
+        del eng, peng, master
+        torch.cuda.empty_cache()
+
+        # prefill + decode against the forward at f32, reduced depth
+        c32 = cfg.replace(compute_dtype=torch.float32, **FAM_DEPTH[arch])
+        b32 = get_bundle(c32)
+        m32 = b32.init(SEED, device=LM_DEVICE)
+        ssm = cfg.family in ("ssm", "hybrid")
+        plen = FAM_PROMPT_LEN if ssm else LM_PROMPT_LEN
+        flen = FAM_FORWARD_LEN if ssm else LM_PROMPT_LEN + LM_DECODE
+        pd, fwd = lm_path_check(b32, m32, LM_DEVICE, LM_DECODE, plen, flen)
+        err = float((pd - fwd).abs().max())
+        assert torch.isfinite(pd).all() and torch.allclose(
+            pd, fwd, rtol=LM_F32_TOL, atol=LM_F32_TOL), (
+            f"{cfg.name} f32: prefill + decode {err} from the forward")
+        depth = ", ".join(f"{k} {v}" for k, v in FAM_DEPTH[arch].items())
+        what = (f"{plen} tokens = {plen // cfg.ssm_chunk} SSD chunks" if ssm
+                else f"{plen} tokens over {cfg.encoder_ctx} frames")
+        log(f"families {cfg.name} ({depth}, full width, f32): prefill of "
+            f"{LM_PROMPTS} prompts of {what} + {LM_DECODE} decode steps "
+            f"against the forward over {flen} tokens: max |err| {err:.3g} "
+            f"(rtol = atol = {LM_F32_TOL})")
+        del pd, fwd
+
+        # the card against the CPU, from the same f32 weights
+        plen = FAM_CARD_CPU_LEN if ssm else LM_PROMPT_LEN
+        pd_card, _ = lm_path_check(b32, m32, LM_DEVICE, LM_CARD_CPU_STEPS,
+                                   plen, 0)
+        host = {k: v.cpu() for k, v in m32.items()}
+        pd_cpu, _ = lm_path_check(b32, host, "cpu", LM_CARD_CPU_STEPS, plen, 0)
+        diff = float((pd_card.cpu() - pd_cpu).abs().max())
+        assert torch.allclose(pd_card.cpu(), pd_cpu, rtol=LM_CARD_CPU_TOL,
+                              atol=LM_CARD_CPU_TOL), (
+            f"{cfg.name} card against the CPU: {diff}")
+        log(f"families {cfg.name} card against the CPU (f32, {depth}, "
+            f"prefill of {plen} tokens + {LM_CARD_CPU_STEPS} decode steps): "
+            f"max |diff| {diff:.3g} (rtol = atol = {LM_CARD_CPU_TOL})")
+        del m32, host, pd_card, pd_cpu
+        torch.cuda.empty_cache()
+
+    launches = read_counters("families path", ())
+    assert all(n == 0 for n in launches.values()), (
+        f"GSON kernels launched on the families path: {launches}")
+    log(f"families path launches: {launches} (none of the GSON kernels); "
+        f"phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return {"families": launches}
 
 
 def smoke_train_step_card_vs_cpu(arch: str, lr: float = 1e-3) -> None:
@@ -2561,6 +2758,7 @@ def main() -> int:
         paths.update(timed(phase_mesh))
         timed(phase_c2)
         paths.update(timed(phase_lm))
+        paths.update(timed(phase_families))
         paths.update(timed(phase_train))
         timed(phase_profile)
     except Exception:  # noqa: BLE001 — report and fail the run

@@ -62,18 +62,18 @@ class TokenStream:
         return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
 
     def extra_inputs(self, cfg, step: int) -> dict:
-        """Modality-stub inputs (vlm patches; the enc-dec family waits for
-        ROADMAP A15e)."""
+        """Modality-stub inputs: vlm patches (``img_embeds``) or enc-dec
+        audio frames (``frames``), 0.02 * N(0, 1) in f32 from a generator
+        seeded by (seed ^ 0x5EED, step); JAX's draws are not reproduced."""
         b = self.global_batch
-        if cfg.family == "vlm":
-            gen = _generator(self.seed ^ 0x5EED, step)
-            return {"img_embeds": (0.02 * torch.randn(
-                (b, cfg.n_img_tokens, cfg.d_model), generator=gen)).to(
-                    self.device)}
-        if cfg.family == "encdec":
-            raise NotImplementedError(
-                "the enc-dec family is not ported yet: ROADMAP A15e")
-        return {}
+        shape = {"vlm": ("img_embeds", cfg.n_img_tokens),
+                 "encdec": ("frames", cfg.encoder_ctx)}.get(cfg.family)
+        if shape is None:
+            return {}
+        name, t = shape
+        gen = _generator(self.seed ^ 0x5EED, step)
+        return {name: (0.02 * torch.randn((b, t, cfg.d_model),
+                                          generator=gen)).to(self.device)}
 
 
 def synthetic_batch(cfg, shape, step: int = 0, seed: int = 0,

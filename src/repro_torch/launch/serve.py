@@ -3,10 +3,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --requests 12 --max-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+      --smoke --device cpu
 
-The model runs at its published width on the card (``--device cuda``, the
-default); ``--smoke`` takes the reduced config of the same family. The
-weights are random, drawn from ``--seed``. The flags are those of
+Every family of ``repro_torch.configs`` serves: the dense, vlm and MoE
+transformers, mamba2-2.7b (SSM), zamba2-2.7b (hybrid) and whisper-medium
+(enc-dec, on the engine's zero audio frames). The model runs at its
+published width on the card (``--device cuda``, the default);
+``--smoke`` takes the reduced config of the same family. The weights are
+random, drawn from ``--seed``. The flags are those of
 ``repro.launch.serve``, plus ``--device``.
 """
 from __future__ import annotations

@@ -8,10 +8,11 @@
   init_cache / decode_step / prefill     — serving
   cache_shapes / input_specs(shape)      — ``meta`` tensors (no memory)
 
-It serves the ``dense``, ``vlm`` and ``moe`` families (the MoE FFN on
-its dense reference path, ``repro_torch.models.moe``). ``ssm`` and
-``hybrid`` (ROADMAP A15d) and ``encdec`` (A15e) raise
-``NotImplementedError``, as do ``param_specs`` and any ``mesh`` (A15f).
+It serves every family of the JAX package: ``dense``, ``vlm`` and
+``moe`` (the MoE FFN on its dense reference path,
+``repro_torch.models.moe``) through ``transformer``, ``ssm``
+(``ssm_lm``), ``hybrid`` and ``encdec``. ``param_specs`` and any
+``mesh`` raise ``NotImplementedError`` (ROADMAP A15f).
 """
 from __future__ import annotations
 
@@ -20,17 +21,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import transformer
-from repro_torch.models.common import ModelConfig, ParamSet, ShapeCfg
-
-_NOT_PORTED = {
-    "ssm": "the SSM family (models/ssm.py, ssm_lm.py) is not ported yet: "
-           "ROADMAP A15d",
-    "hybrid": "the hybrid family (models/hybrid.py) is not ported yet: "
-              "ROADMAP A15d",
-    "encdec": "the enc-dec family (models/encdec.py) is not ported yet: "
-              "ROADMAP A15e",
-}
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
+from repro_torch.models.common import (ModelConfig, ParamSet, ShapeCfg,
+                                       cross_entropy_loss)
 
 
 @dataclass
@@ -71,15 +64,24 @@ class ModelBundle:
         return self._init_cache(self.cfg, batch, max_len, device=device)
 
     def decode_step(self, params, cache, token, mesh=None):
-        """(cache, logits); updates ``cache``'s k and v in place."""
+        """(cache, logits); writes the step into ``cache`` in place (its
+        K/V, or an SSM's state and conv tails)."""
         return self._decode_step(params, self.cfg, cache, token, mesh=mesh)
 
     def prefill(self, params, batch, max_len=None, mesh=None):
-        """Prompt pass -> (cache, last_logits). ``batch`` as input_specs;
-        a vlm batch's image prefix and text prompt share one sequence."""
+        """Prompt pass -> (cache, last_logits). ``batch`` as input_specs:
+        an enc-dec batch's ``frames`` are encoded first; a vlm batch's
+        image prefix and text prompt share one sequence."""
+        if self.cfg.family == "encdec":
+            return self._prefill(params, self.cfg, batch["tokens"],
+                                 batch["frames"], max_len=max_len,
+                                 mesh=mesh)
+        if self.cfg.family == "vlm":
+            return self._prefill(params, self.cfg, batch["tokens"],
+                                 max_len=max_len, mesh=mesh,
+                                 img_embeds=batch.get("img_embeds"))
         return self._prefill(params, self.cfg, batch["tokens"],
-                             max_len=max_len, mesh=mesh,
-                             img_embeds=batch.get("img_embeds"))
+                             max_len=max_len, mesh=mesh)
 
     def cache_shapes(self, batch: int, max_len: int):
         return self._init_cache(self.cfg, batch, max_len, device="meta")
@@ -102,6 +104,9 @@ class ModelBundle:
             if cfg.family == "vlm":
                 specs["img_embeds"] = meta((b, cfg.n_img_tokens, cfg.d_model),
                                            torch.float32)
+            if cfg.family == "encdec":
+                specs["frames"] = meta((b, cfg.encoder_ctx, cfg.d_model),
+                                       torch.float32)
             return specs
         # decode: one new token against a seq_len cache
         return {"token": meta((b, 1)), "cache": self.cache_shapes(b, s)}
@@ -120,6 +125,34 @@ def _dense_forward(params, cfg, batch, mesh=None):
                                batch.get("img_embeds"), mesh=mesh)
 
 
+def _encdec_loss(params, cfg, batch, mesh=None):
+    logits, aux = encdec.forward(params, cfg, batch["tokens"],
+                                 batch["frames"], mesh=mesh)
+    labels = batch["labels"]
+    ce = cross_entropy_loss(logits, labels.clamp_min(0), labels >= 0)
+    return ce, {"ce": ce, "aux": aux}
+
+
+def _encdec_forward(params, cfg, batch, mesh=None):
+    return encdec.forward(params, cfg, batch["tokens"], batch["frames"],
+                          mesh=mesh)
+
+
+def _simple_loss(fwd):
+    def loss(params, cfg, batch, mesh=None):
+        logits, aux = fwd(params, cfg, batch["tokens"], mesh=mesh)
+        labels = batch["labels"]
+        ce = cross_entropy_loss(logits, labels.clamp_min(0), labels >= 0)
+        return ce, {"ce": ce, "aux": aux}
+    return loss
+
+
+def _simple_forward(fwd):
+    def forward(params, cfg, batch, mesh=None):
+        return fwd(params, cfg, batch["tokens"], mesh=mesh)
+    return forward
+
+
 def get_bundle(cfg: ModelConfig) -> ModelBundle:
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
@@ -128,8 +161,19 @@ def get_bundle(cfg: ModelConfig) -> ModelBundle:
             _dense_loss, _dense_forward,
             transformer.init_cache, transformer.decode_step,
             transformer.prefill)
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[fam])
+    if fam == "encdec":
+        # the decoder's self-attention cache; cross K/V at encoder_ctx
+        return ModelBundle(
+            cfg, encdec.encdec_param_set(cfg),
+            _encdec_loss, _encdec_forward,
+            encdec.init_cache, encdec.decode_step, encdec.prefill)
+    if fam in ("ssm", "hybrid"):
+        mod, table = ((ssm_lm, ssm_lm.ssm_param_set) if fam == "ssm"
+                      else (hybrid, hybrid.hybrid_param_set))
+        return ModelBundle(
+            cfg, table(cfg), _simple_loss(mod.forward),
+            _simple_forward(mod.forward), mod.init_cache, mod.decode_step,
+            mod.prefill)
     raise ValueError(fam)
 
 

@@ -89,14 +89,12 @@ def _ffn_params(ps: ParamSet, cfg: ModelConfig):
 # layer body
 # ---------------------------------------------------------------------------
 
-def _unstack_layers(params: dict) -> dict:
-    return {k[len("layers/"):]: v for k, v in params.items()
-            if k.startswith("layers/")}
-
-
-def _layers(params: dict, dtype):
-    """Each layer's parameters, in ``dtype``, in layer order."""
-    stacked = cast_params(_unstack_layers(params), dtype)
+def _layers(params: dict, dtype, prefix: str = "layers"):
+    """Each layer's parameters of the stack ``prefix``, in ``dtype``, in
+    layer order."""
+    pre = prefix + "/"
+    stacked = cast_params({k[len(pre):]: v for k, v in params.items()
+                           if k.startswith(pre)}, dtype)
     n = next(iter(stacked.values())).shape[0]
     for i in range(n):
         yield {k: v[i] for k, v in stacked.items()}
@@ -125,6 +123,12 @@ def qkv(lp: dict, cfg: ModelConfig, x: torch.Tensor):
             v.reshape(b, s, KV, Dh))
 
 
+def qkv_rope(lp: dict, cfg: ModelConfig, x: torch.Tensor, cs):
+    """``qkv`` with rope from the tables ``cs`` on q and k."""
+    q, k, v = qkv(lp, cfg, x)
+    return apply_rope(q, *cs), apply_rope(k, *cs), v
+
+
 def mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
     gate = silu(x @ lp["w_gate"].to(x.dtype))
     up = x @ lp["w_up"].to(x.dtype)
@@ -151,9 +155,7 @@ def decoder_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor,
     rope_cs = positions if isinstance(positions, tuple) else rope_tables(
         positions, cfg.d_head, cfg.rope_theta)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = qkv(lp, cfg, h)
-    q = apply_rope(q, *rope_cs)
-    k = apply_rope(k, *rope_cs)
+    q, k, v = qkv_rope(lp, cfg, h, rope_cs)
     o = attn.blockwise_attention(q, k, v, chunk=cfg.attn_chunk, causal=True)
     b, s = x.shape[:2]
     x = x + o.reshape(b, s, -1) @ lp["wo"].to(x.dtype)
@@ -165,6 +167,16 @@ def decoder_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
+
+def remat(layer, cfg: ModelConfig, params: dict):
+    """``layer`` under ``torch.utils.checkpoint`` when ``cfg.remat`` is
+    ``"full"`` and gradients of ``params`` are being taken; else
+    ``layer`` itself."""
+    if cfg.remat == "full" and torch.is_grad_enabled() and any(
+            v.requires_grad for v in params.values()):
+        return functools.partial(checkpoint, layer, use_reentrant=False)
+    return layer
+
 
 def _prefix(params, cfg, tokens, img_embeds):
     x = _embed(params, cfg, tokens)
@@ -181,11 +193,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     s = x.shape[1]
     cs = rope_tables(torch.arange(s, device=x.device), cfg.d_head,
                      cfg.rope_theta)
-    layer = decoder_layer
-    if cfg.remat == "full" and torch.is_grad_enabled() and any(
-            v.requires_grad for v in params.values()):
-        layer = functools.partial(checkpoint, decoder_layer,
-                                  use_reentrant=False)
+    layer = remat(decoder_layer, cfg, params)
     aux = 0.0
     for lp in _layers(params, cfg.compute_dtype):
         x, a = layer(lp, cfg, x, cs, ffn)
@@ -244,9 +252,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
         kc, vc = cache["k"][i], cache["v"][i]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv(lp, cfg, h)
-        q = apply_rope(q, *cs)
-        k = apply_rope(k, *cs)
+        q, k, v = qkv_rope(lp, cfg, h, cs)
         kc.index_copy_(1, at, k.to(kc.dtype))
         vc.index_copy_(1, at, v.to(vc.dtype))
         o = attn.decode_attention(q, kc, vc, length1)
@@ -273,9 +279,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                      cfg.rope_theta)
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv(lp, cfg, h)
-        q = apply_rope(q, *cs)
-        k = apply_rope(k, *cs)
+        q, k, v = qkv_rope(lp, cfg, h, cs)
         o = attn.blockwise_attention(q, k, v, chunk=cfg.attn_chunk,
                                      causal=True)
         x2 = x + o.reshape(b, s, -1) @ lp["wo"].to(x.dtype)

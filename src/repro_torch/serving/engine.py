@@ -133,6 +133,10 @@ class ServeEngine:
 
     def _modality_stub(self, b: int) -> dict:
         cfg = self.bundle.cfg
+        if cfg.family == "encdec":
+            return {"frames": torch.zeros(
+                (b, cfg.encoder_ctx, cfg.d_model), dtype=torch.float32,
+                device=self.device)}
         if cfg.family == "vlm":
             return {"img_embeds": torch.zeros(
                 (b, cfg.n_img_tokens, cfg.d_model), dtype=torch.float32,

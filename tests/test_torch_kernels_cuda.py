@@ -1043,6 +1043,66 @@ def test_lm_serve_on_card_equals_the_cpu(cuda_device):
     assert served[1] == served[0]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
+                                  "whisper-medium"])
+def test_families_on_card_equals_the_cpu(cuda_device, arch):
+    """The SSM, hybrid and enc-dec smoke configs at f32 from one set of
+    weights on the card and on the CPU: the forward over 32 tokens (two
+    SSD chunks), prefill of 16 and three decode steps within 1e-4 (every
+    cache entry too), then a ``ServeEngine`` on each (whisper on the
+    engine's zero frames) giving the same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_bundle, smoke_config
+    from repro_torch.serving import ServeConfig, ServeEngine
+    cfg = smoke_config(get_config(arch))
+    bundle = get_bundle(cfg)
+    host = bundle.init(0, device="cpu")
+    # the constant-init parameters get values of their own
+    gen = torch.Generator().manual_seed(1)
+    for k in host:
+        if k.endswith(("A_log", "dt_bias", "Dskip", "norm", "ln", "ln1",
+                       "ln2", "ln_c")):
+            host[k] = host[k] + 0.1 * torch.randn(host[k].shape, generator=gen)
+    card = {k: v.to(cuda_device) for k, v in host.items()}
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (3, 32)).astype(np.int32))
+    frames = torch.from_numpy((0.1 * rng.standard_normal(
+        (3, cfg.encoder_ctx, cfg.d_model))).astype(np.float32))
+    out, caches = [], []
+    for params, dev in ((host, "cpu"), (card, cuda_device)):
+        extra = ({"frames": frames.to(dev)} if cfg.family == "encdec"
+                 else {})
+        t = toks.to(dev)
+        fwd, _ = bundle.forward(params, {"tokens": t, **extra})
+        cache, logits = bundle.prefill(params, {"tokens": t[:, :16], **extra},
+                                       max_len=20)
+        steps = [logits]
+        for j in range(16, 19):
+            cache, logits = bundle.decode_step(params, cache, t[:, j:j + 1])
+            steps.append(logits)
+        assert cache["length"].device.type == torch.device(dev).type
+        out.append((fwd.cpu(), torch.stack(steps).cpu()))
+        caches.append({k: v.cpu() for k, v in cache.items()})
+    for a, b in zip(out[1], out[0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for k in caches[0]:
+        torch.testing.assert_close(caches[1][k], caches[0][k], rtol=1e-4,
+                                   atol=1e-4, msg=k)
+
+    served = []
+    for params in (host, card):
+        eng = ServeEngine(bundle, params,
+                          ServeConfig(batch=3, max_len=24, eos_id=-1))
+        rng = np.random.default_rng(1)
+        for i in range(5):
+            eng.submit(rng.integers(2, cfg.vocab, size=int(rng.integers(
+                1, 9))), rid=i, max_tokens=5)
+        served.append({r.rid: r.out for r in eng.run()})
+        assert (eng.prefills, eng.decode_steps) == (2, 8)
+    assert served[1] == served[0]
+
+
 # ---------------------------------------------------------------------------
 # more paths that no record showed on the card (the "c4_" tests, which the
 # c2 phase of chip_smoke.py runs too), and the LM's train step on the card

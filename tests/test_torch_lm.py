@@ -292,12 +292,19 @@ def test_configs_equal_jax_field_by_field(arch):
     assert _fields(get_config(alias)) == _fields(jax_get_config(alias))
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("mamba2-2.7b", "A15d"), ("zamba2-2.7b", "A15d"),
-    ("whisper-medium", "A15e")])
-def test_unported_families_raise(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        registry.get_bundle(registry.smoke_config(get_config(arch)))
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
+                                  "whisper-medium"])
+def test_the_other_families_build_with_jax_tables(arch):
+    """The SSM, hybrid and enc-dec families build at smoke size and at
+    full width, where their parameter table equals JAX's."""
+    tb = registry.get_bundle(registry.smoke_config(get_config(arch)))
+    assert tb.can_decode and sorted(tb.init(0, device="cpu")) == sorted(
+        tb.param_shapes())
+    full = registry.get_bundle(get_config(arch)).param_shapes()
+    jb = jreg.get_bundle(jax_get_config(arch))
+    assert _table(full) == _table(jb.param_shapes())
+    assert tree_param_count(full) == sum(
+        int(np.prod(v.shape)) for v in jb.param_shapes().values())
 
 
 def test_mesh_and_param_specs_raise(pair):

@@ -1,7 +1,8 @@
 """The port's LM ``ServeEngine`` and its launcher: mirrors of the JAX
 engine's tests (``tests/test_serving.py``), token-for-token parity with
-the JAX engine from the same weights, sampling at temperature > 0, and
-the refusals (a mesh, an unported family)."""
+the JAX engine from the same weights, sampling at temperature > 0, the
+launcher on every family, and the refusals (a mesh, a card that is not
+there)."""
 from __future__ import annotations
 
 import jax
@@ -215,9 +216,18 @@ def test_a_mesh_raises(served):
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
                                   "whisper-medium"])
-def test_an_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        launch_serve.main(["--smoke", "--device", "cpu", "--arch", arch])
+def test_launch_serve_smoke_serves_the_other_families(arch, capsys):
+    """Every request finishes: 4 tokens, or fewer ending at the launcher's
+    eos id 1."""
+    done = launch_serve.main(["--smoke", "--device", "cpu", "--arch", arch,
+                              "--requests", "5", "--batch", "2",
+                              "--max-tokens", "4"])
+    assert sorted(r.rid for r in done) == list(range(5))
+    assert all(len(r.out) == 4 or (0 < len(r.out) < 4 and r.out[-1] == 1)
+               for r in done)
+    toks = sum(len(r.out) for r in done)
+    assert f"[serve] {arch}: 5 requests, {toks} tokens" in (
+        capsys.readouterr().out)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
