@@ -142,9 +142,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (``torch_serve_lm``, ``torch_quickstart``,
    ``torch_surface_reconstruction``), each against the CPU or the port's
    own reference path; a smoke train step on the card against the CPU
-   (``lm_train``); and the SSM, hybrid and enc-dec smoke configs on the
-   card against the CPU (``families_on_card``); run by pytest in a child
-   process.
+   (``lm_train``); the SSM, hybrid and enc-dec smoke configs on the
+   card against the CPU (``families_on_card``); and (``lm_mesh``)
+   ``flash_decode``, the MoE's expert parallelism and the mesh decode on a
+   one-rank NCCL mesh against the unmeshed results on the card; run by
+   pytest in a child process.
 17. lm — the LM substrate, which launches none of the GSON kernels (every
    counter set to 0 before and 0 after): ``LM_ARCH`` (qwen1.5-0.5b) at its
    published width from random weights, a ``ServeEngine`` of
@@ -184,8 +186,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    whisper, over its 1500 frames (rtol = atol = ``LM_F32_TOL``); and the
    card against the CPU from the same f32 weights (rtol = atol =
    ``LM_CARD_CPU_TOL``).
-19. train — ``TRAIN_ARCH`` (qwen1.5-0.5b) trained at full width (f32
-   master, bf16 compute, remat full) on ``train_4k``'s 4096-token
+19. train — ``TRAIN_ARCH`` (qwen1.5-0.5b) trained at full width with its
+   depth cut to ``TRAIN_LAYERS`` (f32 master, bf16 compute, remat full)
+   on ``train_4k``'s 4096-token
    sequences, the global batch cut to ``TRAIN_BATCH``, through
    ``launch.steps.build_train_step`` with the cell's deployment (one
    sequence per microbatch, AdamW), ``TRAIN_STEPS`` steps: ms per step
@@ -195,16 +198,39 @@ Phases, each of which fails the run (nonzero exit, no result line):
    rest (bitwise or within 2 lr per step, as printed); the card against
    the CPU on a 2-layer full-width model (loss within 1e-5, gradients
    within 1e-4 of each parameter's largest). Every counter reads 0.
-20. profile — where the main path's time goes (``torch.profiler``):
+20. lm_mesh — the LM on a mesh (``launch/mesh.py``, ``models/placement.py``;
+   every counter of every rank set to 0 before and 0 after): (a) one
+   NCCL rank on ``make_mesh_for_env``'s (data 1, model 1) mesh serves
+   ``LM_ARCH`` at full width in bf16 (its decode deployment) through
+   ``ServeEngine(mesh=)`` on the lm phase's requests, every token equal
+   to the lm phase's; a full-width train step on ``TRAIN_BATCH`` x 4096
+   tokens through ``build_train_step(mesh)``, its loss within
+   ``LMM_LOSS_TOL`` of the train phase's first step; (b) four gloo ranks
+   that all name one card (NCCL cannot put two ranks on one card): the
+   f32 prefill + ``LMM_DECODE`` decode steps at B = ``LMM_B`` on (data 2,
+   model 2), the cache seq-sharded over model, within ``LMM_LOGIT_TOL``
+   of (a)'s and the greedy tokens equal; a train step on ``TRAIN_BATCH`` x
+   ``LMM_TRAIN_SEQ`` tokens (sequences cut from 4096), its loss within
+   ``LMM_LOSS_TOL`` of (a)'s; the pod-manual step (int8 error feedback,
+   straggler masking, health ``LMM_HEALTH``) on (pod 2, model 2),
+   parameters finite and bitwise
+   alike on every rank, ef = g - deq on every rank; ``LM_MOE_ARCH`` at
+   full width cut to ``LMM_MOE_LAYERS`` layers, its layer 0 through
+   expert parallelism (32 of 64 experts per rank) against the dense
+   reference at capacity 8 (``LMM_MOE_TOL``, aux ``LMM_AUX_TOL``), and
+   the drops at the config's capacity. Each part's wall and peak memory
+   per rank. Four ranks on one card check correctness and host overhead,
+   not scaling.
+21. profile — where the main path's time goes (``torch.profiler``):
    device busy share and top kernels at B = 1, then device ops and
    device time per iteration and the busy share of the fleet at B = 8,
    whose window must show one launch of each of the port's device
    kernels per fleet iteration (a profiler that records nothing prints
    "not measured" instead).
-21. report — the ``kernels`` JSON line (each kernel's launches on the main
+22. report — the ``kernels`` JSON line (each kernel's launches on the main
    path, under ``paths`` on every path driven with the counters set to 0
-   before and read after (``lm``, ``families`` and ``train`` among
-   them, all 0), under ``paper`` the capacity that phase
+   before and read after (``lm``, ``families``, ``train`` and
+   ``lm_mesh`` among them, all 0), under ``paper`` the capacity that phase
    13 ran and its launches, ms and bound there, and for B1 under
    ``shapes`` phase 3's m = 1 and dense-pool figures), the card's line,
    and last ``{"ok": true, "device": {...}}``.
@@ -1876,10 +1902,33 @@ FAM_PROMPT_LEN, FAM_FORWARD_LEN, FAM_CARD_CPU_LEN = 1024, 1280, 512
 # TRAIN_CHECK_SEQ tokens (loss within TRAIN_LOSS_TOL relative, each
 # gradient within TRAIN_GRAD_TOL of its parameter's largest gradient)
 TRAIN_ARCH = "qwen1.5-0.5b"
+# the trained model's depth, cut from 24 (at full width) to keep the
+# script inside its time and four ranks of the lm_mesh phase inside the
+# card's memory; the lm_mesh phase trains the same model
+TRAIN_LAYERS = 12
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_AT = 8, 4, 2
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_SEQ = 2, 256
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
+
+# the lm_mesh phase: (a) one NCCL rank on launch.train.make_mesh_for_env's
+# (data 1, model 1) mesh, (b) four gloo ranks that all name cuda:0. The f32
+# prefill + decode of both (LMM_B prompts of LMM_PROMPT tokens, LMM_DECODE
+# steps, a cache of LMM_MAX_LEN positions), its logits within LMM_LOGIT_TOL
+# of each other; (b)'s train steps on TRAIN_BATCH sequences cut from 4096
+# to LMM_TRAIN_SEQ tokens, the loss within LMM_LOSS_TOL relative of (a)'s;
+# the pod-manual step's health; the MoE model's depth and its tokens
+# (batch, sequence), held against the dense reference within
+# LMM_MOE_TOL (aux LMM_AUX_TOL) at capacity_factor LMM_MOE_CF
+LMM_B, LMM_PROMPT, LMM_DECODE, LMM_MAX_LEN = 8, 16, 8, 32
+LMM_LOGIT_TOL, LMM_LOSS_TOL = 1e-4, 1e-5
+LMM_TRAIN_SEQ = 512
+LMM_HEALTH = (1.0, 0.5)
+LMM_MOE_LAYERS, LMM_MOE_X = 2, (4, 64)
+LMM_MOE_TOL, LMM_AUX_TOL, LMM_MOE_CF = 2e-3, 1e-2, 8.0
+# what one phase hands a later one (the lm phase's tokens, the train
+# phase's first loss)
+CARRIED = {}
 
 
 # the cuda tests of the paths that had not run on the card before (the
@@ -1889,7 +1938,7 @@ BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 # LM smoke configs on the card against the CPU (ServeEngine's device paths,
 # the SSM, hybrid and enc-dec families among them)
 C2_TESTS = ("c2_", "tf32", "grid_on_card", "serve_on_card", "lm_serve",
-            "c4_", "lm_train", "families_on_card")
+            "c4_", "lm_train", "families_on_card", "lm_mesh")
 
 
 def phase_c2():
@@ -2065,6 +2114,7 @@ def phase_lm() -> dict:
                                          LM_MAX_TOKENS, cfg.name)
     assert (eng.prefills, eng.decode_steps) == (2, 62), (
         eng.prefills, eng.decode_steps)
+    CARRIED["lm_tokens"] = sorted((r.rid, list(r.out)) for r in eng.finished)
     toks = sum(len(r.out) for r in eng.finished)
     weights = sum(v.numel() * v.element_size()
                   for k, v in eng.compute_params.items()
@@ -2477,7 +2527,7 @@ def phase_train() -> dict:
     zero_counters()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
     assert (cfg.remat, cfg.param_dtype, cfg.compute_dtype) == (
         "full", torch.float32, torch.bfloat16)
     seq = SHAPES["train_4k"].seq_len
@@ -2511,6 +2561,7 @@ def phase_train() -> dict:
             save_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    CARRIED["train_loss0"] = losses[0]
     # where a microbatch's time goes: one sequence's gradient, profiled
     gfn = grad_fn(bundle)
     one = {k: v[:1] for k, v in batches[0].items()}
@@ -2611,6 +2662,406 @@ def phase_train() -> dict:
     log(f"train path launches: {launches} (none of the GSON kernels); phase "
         f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
     return {"train": launches}
+
+
+def lmm_setup(rank: int, opts: dict):
+    """A rank of the lm_mesh phase: TF32 off, its device, the GSON
+    counters at 0, its peak memory reset."""
+    import torch
+    _mesh_rank_setup()
+    torch.set_num_threads(2)
+    zero_counters()
+    if opts["device"] != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    return opts["device"]
+
+
+def lmm_cfg(arch: str, opts: dict, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import smoke_config
+    cfg = get_config(arch)
+    return (smoke_config(cfg) if opts.get("smoke") else cfg).replace(**kw)
+
+
+def lmm_part(name: str, parts: dict, device: str):
+    """A context timing one part of a rank's work (wall s, peak GiB)."""
+    import torch
+
+    @contextlib.contextmanager
+    def part():
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        yield
+        if device != "cpu":
+            torch.cuda.synchronize()
+        parts[name] = (round(time.perf_counter() - t0, 2), round(
+            torch.cuda.max_memory_allocated() / 2**30 if device != "cpu"
+            else 0.0, 2))
+        if device != "cpu":   # the ranks share one card: give it back
+            torch.cuda.empty_cache()
+    return part()
+
+
+def lmm_prefill_decode(mesh, opts: dict, device: str):
+    """``LM_ARCH`` at f32 from seed 0 under its decode deployment's rules:
+    prefill of ``LMM_B`` prompts and ``LMM_DECODE`` decode steps through
+    ``build_prefill_step`` / ``build_decode_step``; this rank's rows of
+    the logits, (steps + 1, rows, V) on the host, and their first row."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import placement
+    from repro_torch.models.common import ShapeCfg
+    from repro_torch.models.registry import get_bundle
+    cfg = lmm_cfg(LM_ARCH, opts, compute_dtype=torch.float32)
+    bundle = get_bundle(cfg)
+    dep = steps.deploy_for(LM_ARCH, "decode_32k")
+    rules = steps.rules_for_deploy(mesh, dep)
+    params = placement.shard_params(bundle.init(0, device=device),
+                                    bundle.param_specs(rules), mesh)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        2, cfg.vocab, (LMM_B, LMM_PROMPT + LMM_DECODE)).astype(
+            np.int32)).to(device)
+    pstep, _ = steps.build_prefill_step(
+        bundle, mesh, rules, ShapeCfg("p", LMM_MAX_LEN, LMM_B, "prefill"), dep)
+    dstep, _ = steps.build_decode_step(
+        bundle, mesh, rules, ShapeCfg("d", LMM_MAX_LEN, LMM_B, "decode"), dep)
+    cache, logits = pstep(params, {"tokens": toks[:, :LMM_PROMPT]})
+    out = [logits.float()]
+    for j in range(LMM_DECODE):
+        at = LMM_PROMPT + j
+        cache, logits = dstep(params, cache, toks[:, at:at + 1])
+        out.append(logits.float())
+    rows = placement.axes_of(cache.spec("k")[1])
+    return (torch.stack(out).cpu(), mesh.index(rows) * out[0].shape[0],
+            tuple(cache["k"].shape))
+
+
+def lmm_train(mesh, opts: dict, device: str, seq: int, pod_manual=False,
+              health=None):
+    """One ``build_train_step`` step of ``TRAIN_ARCH`` (f32 master, bf16
+    compute, ``TRAIN_LAYERS`` layers, seed 0) on ``TRAIN_BATCH`` x ``seq``
+    tokens (synthetic_batch step 0, seed 0) with the cell's deployment on
+    ``mesh`` and the rules of ``launch.train``: (loss, params after the
+    step, ef or None, the deployment)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch import steps
+    from repro_torch.models.common import ShapeCfg, rules_for_mesh
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.training.compression import init_ef_state
+    from repro_torch.training.trainer import init_train_state
+    cfg = lmm_cfg(TRAIN_ARCH, opts)
+    if not opts.get("smoke"):
+        cfg = cfg.replace(n_layers=TRAIN_LAYERS)
+    bundle = get_bundle(cfg)
+    shape = ShapeCfg("train_4k", seq, TRAIN_BATCH, "train")
+    dep = steps.resolve_deploy(steps.deploy_for(cfg.name, "train_4k"), shape,
+                               mesh)
+    if pod_manual:
+        dep = dataclasses.replace(dep, compress_pods=True,
+                                  straggler_masking=True)
+    rules = rules_for_mesh(mesh)
+    step, _, tcfg = steps.build_train_step(bundle, mesh, rules, dep)
+    params, opt, _ = init_train_state(bundle, mesh, rules, tcfg, rng=0,
+                                      device=device)
+    batch = synthetic_batch(cfg, shape, step=0, seed=0, device=device)
+    if pod_manual:
+        ef = init_ef_state(params)
+        params, opt, ef, m = step(params, opt, batch, ef,
+                                  torch.tensor(health, device=device))
+    else:
+        params, opt, m = step(params, opt, batch)
+        ef = None
+    return float(m["loss"]), params, ef, dep
+
+
+def lm_mesh_nccl_world(rank: int, carried: dict, opts: dict) -> dict:
+    """(a) One NCCL rank on ``make_mesh_for_env``'s (data 1, model 1) mesh:
+    ``LM_ARCH`` at full width served in bf16 (its decode deployment) by
+    ``ServeEngine(mesh=)`` on the lm phase's requests, tokens equal to the
+    lm phase's; the f32 prefill + decode that (b) is held against; a
+    full-width train step on ``TRAIN_BATCH`` x 4096 tokens, its loss
+    within ``LMM_LOSS_TOL`` of the train phase's first (unmeshed) step;
+    the same step on ``LMM_TRAIN_SEQ``-token sequences for (b)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import make_mesh_for_env
+    from repro_torch.models import placement
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.serving import ServeConfig, ServeEngine
+    device = lmm_setup(rank, opts)
+    mesh = make_mesh_for_env()
+    out, parts = {"mesh": dict(mesh.shape)}, {}
+
+    with lmm_part("serve", parts, device):
+        cfg = lmm_cfg(LM_ARCH, opts)
+        dep = steps.deploy_for(LM_ARCH, "decode_32k")
+        assert dep.serve_bf16 and not dep.fsdp, dep
+        bundle = get_bundle(dataclasses.replace(cfg,
+                                                param_dtype=torch.bfloat16))
+        master = get_bundle(cfg).init(0, device=device)
+        params = placement.shard_params(
+            {k: v.to(torch.bfloat16) for k, v in master.items()},
+            bundle.param_specs(steps.rules_for_deploy(mesh, dep)), mesh)
+        del master
+
+        def engine(reqs, n):
+            eng = ServeEngine(bundle, params, ServeConfig(
+                batch=LM_BATCH, max_len=LM_MAX_LEN, eos_id=-1), mesh=mesh)
+            for i, p in enumerate(reqs):
+                eng.submit(p, rid=i, max_tokens=n)
+            return eng
+        # a warm-up wave first (cuBLAS handles, the allocator)
+        engine(lm_prompts(2, cfg.vocab, seed=9), 2).run()
+        eng = engine(lm_prompts(LM_REQUESTS, cfg.vocab), LM_MAX_TOKENS)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = sorted((r.rid, list(r.out)) for r in done)
+        out["serve"] = (wall, sum(len(o) for _, o in got), eng.prefills,
+                        eng.decode_steps)
+        want = carried.get("lm_tokens")
+        if want is not None:
+            diff = [(a[0], next(i for i, (x, y) in enumerate(zip(a[1], b[1]))
+                                if x != y))
+                    for a, b in zip(got, want) if a != b]
+            assert not diff, (
+                f"the meshed engine's tokens differ from the lm phase's "
+                f"(request, first token): {diff}")
+        del eng, params
+
+    with lmm_part("prefill_decode", parts, device):
+        out["logits"], _, out["cache_k"] = lmm_prefill_decode(mesh, opts,
+                                                             device)
+    with lmm_part("train_4096", parts, device):
+        seq = 64 if opts.get("smoke") else 4096
+        loss, params, _, dep = lmm_train(mesh, opts, device, seq)
+        out["train_4096"] = (loss, dep.microbatches)
+        want = carried.get("train_loss0")
+        if want is not None:
+            assert math.isclose(loss, want, rel_tol=LMM_LOSS_TOL), (loss,
+                                                                    want)
+        del params
+    with lmm_part("train_short", parts, device):
+        loss, params, _, dep = lmm_train(mesh, opts, device, LMM_TRAIN_SEQ
+                                         if not opts.get("smoke") else 32)
+        out["train_short"] = (loss, dep.microbatches)
+        del params
+    out["parts"] = parts
+    out["launches"] = read_counters("lm_mesh path (nccl rank)", ())
+    out["backend"] = torch.distributed.get_backend()
+    return out
+
+
+def lm_mesh_gloo_world(rank: int, opts: dict) -> dict:
+    """(b) Four gloo ranks that all name one card: the dense f32 prefill +
+    decode on (data 2, model 2), a train step on (data 2, model 2), the
+    pod-manual step (int8 error feedback, straggler masking) on (pod 2,
+    model 2), and the MoE layer through expert parallelism on (data 2,
+    model 2) against the dense reference; each part timed, with this
+    rank's peak memory."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import build_mesh, make_debug_mesh
+    from repro_torch.models import placement
+    from repro_torch.models.moe import (EXPERT_LEAVES, moe_ffn_ep,
+                                        moe_ffn_reference)
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.training import trainer
+    device = lmm_setup(rank, opts)
+    mesh = make_debug_mesh((2, 2), ("data", "model"))
+    pods = build_mesh((2, 2), ("pod", "model"))
+    out, parts = {}, {}
+
+    with lmm_part("prefill_decode", parts, device):
+        out["logits"], out["row0"], out["cache_k"] = lmm_prefill_decode(
+            mesh, opts, device)
+
+    with lmm_part("train", parts, device):
+        seq = LMM_TRAIN_SEQ if not opts.get("smoke") else 32
+        loss, params, _, dep = lmm_train(mesh, opts, device, seq)
+        out["train"] = (loss, dep.microbatches)
+        del params
+
+    with lmm_part("pod_manual", parts, device):
+        worst = []
+        real = trainer.compressed_psum
+
+        def checked(grads, ef, group, n, **kw):
+            """The step's own compressed_psum, then ef = g - deq: (g -
+            ef) / scale is this pod's int8 payload, and the payloads' sum
+            over the pods times the scale, over the pods, is the mean the
+            step uses (one leaf at a time: collective)."""
+            mean, ef_out = real(grads, ef, group, n, **kw)
+            err = 0.0
+            for k in sorted(grads):
+                g = grads[k].float() + ef[k]
+                scale = placement.reduce(
+                    g.abs().max().clamp_min(1e-12) / 127.0, pods,
+                    pods.axis_names, torch.distributed.ReduceOp.MAX)
+                q = (g - ef_out[k]) / scale
+                assert bool(((q - q.round()).abs() < 1e-3).all()) and bool(
+                    (q.round().abs() <= 127).all()), k
+                deq = placement.reduce(q.round().to(torch.int32), pods, "pod")
+                want = deq.float() * scale / n
+                err = max(err, float((mean[k] - want).abs().max()
+                                     / want.abs().max().clamp_min(1e-30)))
+            worst.append(err)
+            return mean, ef_out
+        trainer.compressed_psum = checked
+        try:
+            loss, params, ef, _ = lmm_train(pods, opts, device, seq, True,
+                                            LMM_HEALTH)
+        finally:
+            trainer.compressed_psum = real
+        assert len(worst) == 1 and worst[0] <= 1e-6, worst
+        assert all(bool(torch.isfinite(v).all()) for v in params.values())
+        digest = hashlib.sha256()
+        for k, v in sorted(placement.gather_params(params).items()):
+            digest.update(v.cpu().numpy().tobytes())
+        out["pod"] = (loss, digest.hexdigest(), worst[0])
+        del params, ef
+
+    with lmm_part("moe", parts, device):
+        cfg = lmm_cfg(LM_MOE_ARCH, opts, n_layers=LMM_MOE_LAYERS,
+                      compute_dtype=torch.float32)
+        full = get_bundle(cfg).init(0, device=device)
+        lp = {k[len("layers/"):]: v[0] for k, v in full.items()
+              if k.startswith("layers/")}
+        del full
+        n_ep, m = mesh.size("model"), mesh.index("model")
+        e_local = lp["router"].shape[-1] // n_ep
+        local = {k: v.narrow(0, m * e_local, e_local)
+                 if k in EXPERT_LEAVES else v for k, v in lp.items()}
+        x = torch.from_numpy((0.5 * np.random.default_rng(6).standard_normal(
+            LMM_MOE_X + (cfg.d_model,))).astype(np.float32)).to(device)
+        b_l = x.shape[0] // mesh.size("data")
+        rows = slice(mesh.index("data") * b_l, (mesh.index("data") + 1) * b_l)
+        c8 = cfg.replace(capacity_factor=LMM_MOE_CF)
+        with torch.no_grad():
+            y, aux = moe_ffn_ep(local, x[rows], c8, mesh, bat=("data",))
+            y_ref, aux_ref = moe_ffn_reference(lp, x, c8)
+            err = float((y - y_ref[rows]).abs().max())
+            assert torch.allclose(y, y_ref[rows], rtol=LMM_MOE_TOL,
+                                  atol=LMM_MOE_TOL), err
+            assert math.isclose(float(aux), float(aux_ref),
+                                rel_tol=LMM_AUX_TOL), (float(aux),
+                                                       float(aux_ref))
+            drops = {}
+            moe_ffn_ep(local, x[rows], cfg, mesh, bat=("data",), drops=drops)
+        out["moe"] = (err, float(aux), float(aux_ref), e_local, drops,
+                      cfg.n_experts, lp["router"].shape[-1])
+        del lp, local
+    out["parts"] = parts
+    out["launches"] = read_counters(f"lm_mesh path (gloo rank {rank})", ())
+    return out
+
+
+def phase_lm_mesh(opts: dict | None = None) -> dict:
+    """The LM on a mesh (ROADMAP A15f): (a) one NCCL rank, (b) four gloo
+    ranks on the one card (NCCL cannot put two ranks on one card). Four
+    ranks on one card check correctness and host overhead, not scaling:
+    every collective of (b) stages through the host. No GSON kernel runs
+    on this path: every counter of every rank reads 0. Returns the path's
+    launches."""
+    from repro_torch.core.gson.distributed import run_world
+    opts = opts or {"device": LM_DEVICE}
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    backend = "gloo" if opts["device"] == "cpu" else "nccl"
+    t0 = time.perf_counter()
+    (a,) = run_world(lm_mesh_nccl_world, 1, (CARRIED, opts), backend=backend,
+                     timeout_s=600)
+    t_a = time.perf_counter() - t0
+    wall, toks, waves, dsteps = a["serve"]
+    log(f"lm_mesh (a): 1 {a['backend']} rank, make_mesh_for_env's mesh "
+        f"{a['mesh']}, world {t_a:.1f} s: {LM_ARCH} served in bf16 by "
+        f"ServeEngine(mesh=) on the lm phase's {LM_REQUESTS} requests x "
+        f"{LM_MAX_TOKENS} tokens ({waves} waves, {dsteps} decode steps): "
+        f"{toks} tokens in {wall:.3f} s = {toks / wall:.1f} tokens/s, every "
+        f"token equal to the lm phase's (unmeshed) "
+        f"{'(asserted)' if 'lm_tokens' in CARRIED else '(not run)'}; a train "
+        f"step on {TRAIN_BATCH} x 4096 tokens ({TRAIN_LAYERS} layers, "
+        f"{a['train_4096'][1]} microbatches): loss {a['train_4096'][0]:.7f} against the train "
+        f"phase's {CARRIED.get('train_loss0', float('nan')):.7f} (rel tol "
+        f"{LMM_LOSS_TOL}); parts (wall s, peak GiB) {a['parts']}  [{card}]")
+    t0 = time.perf_counter()
+    ranks = run_world(lm_mesh_gloo_world, 4, (opts,), timeout_s=900)
+    t_b = time.perf_counter() - t0
+    # the f32 prefill + decode: each rank's rows against (a)'s
+    ref = a["logits"]
+    worst, clear, same = 0.0, 0, 0
+    for r, x in enumerate(ranks):
+        want = ref[:, x["row0"]:x["row0"] + x["logits"].shape[1]]
+        worst = max(worst, float((x["logits"] - want).abs().max()))
+        top2 = want.topk(2, dim=-1).values
+        ok = (top2[..., 0] - top2[..., 1]) > 2 * LMM_LOGIT_TOL
+        eq = x["logits"].argmax(-1) == want.argmax(-1)
+        assert bool(eq[ok].all()), f"rank {r}: greedy tokens differ"
+        clear += int(ok.sum())
+        same += int(eq.sum())
+    assert worst <= LMM_LOGIT_TOL, f"(b) prefill + decode {worst} from (a)"
+    n_rows = sum(int(x["logits"][..., 0].numel()) for x in ranks)
+    loss_a, loss_b = a["train_short"][0], ranks[0]["train"][0]
+    assert all(x["train"][0] == loss_b for x in ranks)
+    assert math.isclose(loss_b, loss_a, rel_tol=LMM_LOSS_TOL), (loss_b,
+                                                                loss_a)
+    pods = {x["pod"][1] for x in ranks}
+    assert len(pods) == 1, "the pod-manual step's parameters differ"
+    err, aux, aux_ref, e_local, _, n_exp, e_pad = ranks[0]["moe"]
+    drops = {k: sum(x["moe"][4][k] for x in ranks)
+             for k in ("routed", "dropped_send", "dropped_expert")}
+    log(f"lm_mesh (b): 4 gloo ranks on {opts['device']}, world {t_b:.1f} s "
+        f"(collectives staged through the host: correctness and host "
+        f"overhead, not scaling); {LM_ARCH} f32 prefill + {LMM_DECODE} decode "
+        f"steps, B = {LMM_B}, on (data 2, model 2), the cache's k block "
+        f"{ranks[0]['cache_k']} (seq over model; (a): {a['cache_k']}): max "
+        f"|diff| from (a) {worst:.3g} (tol {LMM_LOGIT_TOL}), greedy tokens "
+        f"equal on {same} of {n_rows} rows ({clear} with a top-2 margin over "
+        f"{2 * LMM_LOGIT_TOL}, all equal)  [{card}]")
+    log(f"lm_mesh (b): {TRAIN_ARCH} ({TRAIN_LAYERS} layers at full width, "
+        f"as the train phase's) train step on (data 2, model 2), "
+        f"{TRAIN_BATCH} x {LMM_TRAIN_SEQ} tokens (sequences cut from 4096), "
+        f"{ranks[0]['train'][1]} microbatches: loss {loss_b:.7f} against (a)'s "
+        f"{loss_a:.7f} ({a['train_short'][1]} microbatches; rel tol "
+        f"{LMM_LOSS_TOL}); pod-manual step on (pod 2, model 2), "
+        f"int8 error feedback and straggler masking, "
+        f"health {list(LMM_HEALTH)}: loss "
+        f"{ranks[0]['pod'][0]:.7f}, parameters finite and bitwise alike on "
+        f"all 4 ranks, ef = g - deq on every rank (the payload sum within "
+        f"{max(x['pod'][2] for x in ranks):.3g} of the step's mean)")
+    log(f"lm_mesh (b): {LM_MOE_ARCH} at full width, {LMM_MOE_LAYERS} layers, "
+        f"f32, expert parallelism over model = 2 ({e_local} of {e_pad} padded "
+        f"experts per rank, {n_exp} real): layer 0 on x {LMM_MOE_X} within "
+        f"{err:.3g} of the dense reference at capacity_factor {LMM_MOE_CF} "
+        f"(tol {LMM_MOE_TOL}), aux {aux:.6f} / {aux_ref:.6f} (rel tol "
+        f"{LMM_AUX_TOL}); at the config's capacity_factor: {drops['routed']} "
+        f"assignments, {drops['dropped_send']} dropped at dispatch, "
+        f"{drops['dropped_expert']} at the experts")
+    for r, x in enumerate(ranks):
+        log(f"  gloo rank {r}: parts (wall s, peak GiB) {x['parts']}")
+    launches = Counter(a["launches"])
+    for x in ranks:
+        launches.update(x["launches"])
+    assert all(n == 0 for n in launches.values()), (
+        f"GSON kernels launched on the lm_mesh path: {dict(launches)}")
+    log(f"lm_mesh path launches: {dict(launches)} (none of the GSON "
+        f"kernels, on any rank); phase {time.perf_counter() - t_phase:.1f} s "
+        f" [{card}]")
+    return {"lm_mesh": {k: launches[k] for k in a["launches"]}}
 
 
 def profile_window(run):
@@ -2760,6 +3211,7 @@ def main() -> int:
         paths.update(timed(phase_lm))
         paths.update(timed(phase_families))
         paths.update(timed(phase_train))
+        paths.update(timed(phase_lm_mesh))
         timed(phase_profile)
     except Exception:  # noqa: BLE001 — report and fail the run
         traceback.print_exc()

@@ -1,5 +1,5 @@
 """Attention of the port: blockwise (online-softmax) prefill/forward and
-single-step decode against a replicated cache
+single-step decode against a replicated or a sequence-sharded cache
 (``repro.models.attention``'s counterparts).
 
 Plain PyTorch, the JAX code's own computation: q, k and v go to f32, q
@@ -11,14 +11,18 @@ in bf16, a different function. The JAX package names a Pallas
 ``kernels/flash_attention`` kernel that is not in its tree; its LM
 attention is plain jnp, so there is no TPU kernel to port here.
 
-``flash_decode`` (the cache sequence-sharded over a mesh) waits for the
-LM's meshes (ROADMAP A15f).
+``flash_decode`` decodes against a KV cache sequence-sharded over a
+mesh axis (flash-decoding): each rank computes a partial softmax over its
+slice of the cache, and the shards merge through an ``all_reduce`` of the
+maxima (MAX) and of the corrected sums and outputs (SUM) over the axis's
+group, as JAX's ``pmax``/``psum``: collective volume O(B*H*D) per step.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.distributed as dist
 
 NEG = -1e30
 
@@ -91,3 +95,44 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
 
+
+
+def flash_decode(mesh, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 length: torch.Tensor, seq_axis: str = "model"
+                 ) -> torch.Tensor:
+    """Decode with the KV cache sequence-sharded over ``seq_axis``.
+    Collective over that axis's group.
+
+    The arguments are this rank's blocks, in the caller's batch layout
+    (the cache's rows; JAX's rule that the batch falls back to replicated
+    when ``q.shape[0]`` does not divide the batch axes is a layout, which
+    the caller's cache specs fix): q (b, 1, H, D) its rows, k and v (b,
+    T/n, KV, D) its rows of seq shard ``mesh.index(seq_axis)`` of n,
+    length (b,). Masked logits take ``NEG``, so a shard with no valid
+    position stays finite and weighs exp(NEG - max) = 0 in the merge.
+    Over one shard there is nothing to merge, and the softmax is
+    ``decode_attention``'s: a one-rank mesh decodes bitwise as no mesh
+    (the merge's other rounding flips near-ties of bf16 greedy decoding)."""
+    from repro_torch.models import placement
+    if mesh.size(seq_axis) == 1:
+        return decode_attention(q, k, v, length)
+    b, _, h, d = q.shape
+    t_l, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    shard = mesh.index(seq_axis)
+    qg = q.reshape(b, kv, g, d).float() * _scale(d)
+    logits = torch.einsum("bkgd,btkd->bkgt", qg, k.float())
+    pos = shard * t_l + torch.arange(t_l, device=q.device)
+    ok = pos[None, :] < length[:, None]
+    logits = torch.where(ok[:, None, None, :], logits, NEG)
+    m_loc = logits.amax(dim=-1)                               # (b,kv,g)
+    p = torch.exp(logits - m_loc[..., None])
+    p = torch.where(ok[:, None, None, :], p, 0.0)
+    l_loc = p.sum(dim=-1)
+    o_loc = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    m_g = placement.reduce(m_loc, mesh, seq_axis, dist.ReduceOp.MAX)
+    corr = torch.exp(m_loc - m_g)
+    l_g = placement.reduce(l_loc * corr, mesh, seq_axis)
+    o_g = placement.reduce(o_loc * corr[..., None], mesh, seq_axis)
+    out = o_g / l_g.clamp_min(1e-30)[..., None]
+    return out.reshape(b, 1, h, d).to(q.dtype)

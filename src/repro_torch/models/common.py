@@ -6,15 +6,18 @@ entries (``layers/*``) carry a leading layer axis. Every module defines
 its parameters through ``ParamSet``, so two views derive from one table:
   * ``init(seed_or_generator, device)`` — materialised tensors;
   * ``shapes()``                         — the same tensors on the
-    ``meta`` device (names, shapes and dtypes; nothing allocated).
+    ``meta`` device (names, shapes and dtypes; nothing allocated);
+  * ``specs(rules)``                     — the same names mapped to a
+    partition spec ``P`` (JAX's logical-axis rules, ``ShardingRules``).
 
-The logical-axis sharding rules (``ShardingRules``, ``rules_for_mesh``,
-``ParamSet.specs``) wait for the LM's meshes (ROADMAP A15f).
+``P`` is the port's PartitionSpec: a tuple with one entry per dimension,
+each None, a mesh axis name or a tuple of names. How a rank holds and
+computes with what a spec says is ``repro_torch.models.placement``'s.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -111,7 +114,97 @@ def pad_to_multiple(n: int, mult: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# ParamSet: one table -> init / shapes
+# logical-axis -> mesh-axis rules
+# ---------------------------------------------------------------------------
+
+class P(tuple):
+    """A partition spec: one entry per dimension (None, an axis name or a
+    tuple of axis names), ``jax.sharding.PartitionSpec``'s counterpart."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """Maps logical param/activation axes to mesh axes (or None)."""
+    tensor_axis: str | None = "model"    # TP
+    fsdp_axis: str | tuple | None = "data"  # param FSDP
+    batch_axes: tuple = ("pod", "data")  # activation batch sharding
+    # lm_head vocab axis: kept on 'model' even when TP is off so logits
+    # stay vocab-sharded
+    vocab_axis: str | None = "model"
+    mesh_axis_sizes: dict = field(default_factory=dict)
+
+    def axis_for(self, logical: str, dim_size: int):
+        """Physical mesh axis (or axis tuple) for a logical axis,
+        honoring divisibility. ``fsdp_axis`` may be a tuple
+        (("data","model") for pure-DP big models: ZeRO-3-wide)."""
+        table = {
+            "layer": None,
+            "embed": self.fsdp_axis,
+            "embed_no_fsdp": None,
+            "heads": self.tensor_axis,
+            "kv": self.tensor_axis,
+            "mlp": self.tensor_axis,
+            "vocab": self.vocab_axis,
+            # input-embedding vocab axis: replicated over TP so the token
+            # gather needs no collective
+            "vocab_in": None,
+            "experts": self.tensor_axis,
+            # expert matrices carry FSDP on their input dim
+            "expert_in": self.fsdp_axis,
+            "expert_out": None,
+            "ssm_heads": self.tensor_axis,
+            "ssm_state": None,
+            "conv": None,
+            "none": None,
+        }
+        ax = table[logical]
+        if ax is None:
+            return None
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        size = 1
+        for a in axes:
+            size *= self.mesh_axis_sizes.get(a, 1)
+        if dim_size % size != 0:
+            return None  # not divisible -> replicate
+        return ax
+
+    def spec_for(self, logical_axes: tuple, shape: tuple) -> P:
+        used = set()
+        out = []
+        for name, dim in zip(logical_axes, shape):
+            ax = self.axis_for(name, dim)
+            parts = ax if isinstance(ax, tuple) else (ax,)
+            if any(p in used for p in parts if p):  # axis used once only
+                ax = None
+            elif ax is not None:
+                used.update(p for p in parts if p)
+            out.append(ax)
+        return P(*out)
+
+    def batch_spec(self, *trailing) -> P:
+        axes = tuple(a for a in self.batch_axes
+                     if a in self.mesh_axis_sizes)
+        return P(axes if axes else None, *trailing)
+
+
+def rules_for_mesh(mesh) -> ShardingRules:
+    """The rules of a mesh (an ``LMMesh``, or anything with
+    ``axis_names`` and ``devices.shape``)."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    return ShardingRules(mesh_axis_sizes=sizes,
+                         vocab_axis="model" if "model" in sizes else None,
+                         batch_axes=tuple(a for a in ("pod", "data")
+                                          if a in sizes))
+
+
+# ---------------------------------------------------------------------------
+# ParamSet: one table -> init / shapes / specs
 # ---------------------------------------------------------------------------
 
 @dataclass
@@ -166,6 +259,10 @@ class ParamSet:
                                   device="meta")
                 for name, d in sorted(self.defs.items())}
 
+    def specs(self, rules: ShardingRules) -> dict:
+        return {name: rules.spec_for(d.logical_axes, d.shape)
+                for name, d in sorted(self.defs.items())}
+
 
 # ---------------------------------------------------------------------------
 # numerics primitives (the JAX cast sequence, op for op)
@@ -173,8 +270,9 @@ class ParamSet:
 
 def cast_params(tree: dict, dtype) -> dict:
     """The tree in ``dtype``; a tensor already in it is returned as it is
-    (no copy)."""
-    return {k: v.to(dtype) for k, v in tree.items()}
+    (no copy). A ``placement.Sharded`` tree stays one, with its specs."""
+    out = {k: v.to(dtype) for k, v in tree.items()}
+    return tree.with_values(out) if hasattr(tree, "with_values") else out
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:

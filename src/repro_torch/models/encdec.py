@@ -83,7 +83,7 @@ def _encoder_layer(lp, cfg, x, cs):
 def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
            mesh=None) -> torch.Tensor:
     """frames: (B, Tenc, D) stub embeddings -> encoder states."""
-    no_mesh(mesh)
+    no_mesh(mesh, "encdec")
     x = frames.to(cfg.compute_dtype)
     cs = _positions(x.shape[1], cfg, x.device)
     layer = remat(_encoder_layer, cfg, params)
@@ -172,7 +172,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 token: torch.Tensor, mesh=None):
     """One decode step. token: (B, 1) i32. Returns (cache, logits (B,V));
     ``k`` and ``v`` are written in place (module docstring)."""
-    no_mesh(mesh)
+    no_mesh(mesh, "encdec")
     x = _embed(params, cfg, token)
     b = x.shape[0]
     length = cache["length"]

@@ -90,7 +90,7 @@ def _layer(lp, sp, cfg, x, cs, i: int):
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             img_embeds=None, mesh=None):
     """Full-sequence forward. Returns (logits (B,S,V), 0.0 aux)."""
-    no_mesh(mesh)
+    no_mesh(mesh, "hybrid")
     x = _embed(params, cfg, tokens)
     s = x.shape[1]
     cs = rope_tables(torch.arange(s, device=x.device), cfg.d_head,
@@ -118,7 +118,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int | None = None, mesh=None):
     """Prompt pass: the SSD state per mamba layer and the K/V of each
     shared-block invocation. Returns (cache, last_logits)."""
-    no_mesh(mesh)
+    no_mesh(mesh, "hybrid")
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
     cache = init_cache(cfg, b, max_len or s, device=x.device)
@@ -145,7 +145,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 token: torch.Tensor, mesh=None):
     """One decode step. token: (B, 1) i32. Returns (cache, logits (B,V));
     the cache is updated in place (module docstring)."""
-    no_mesh(mesh)
+    no_mesh(mesh, "hybrid")
     x = _embed(params, cfg, token)
     b = x.shape[0]
     length = cache["length"]

@@ -2,7 +2,7 @@
 (``repro.models.registry``'s counterpart).
 
 ``get_bundle(cfg)`` returns a ModelBundle exposing:
-  init / param_shapes                    — parameters (2 views, 1 table)
+  init / param_shapes / param_specs      — parameters (3 views, 1 table)
   loss(params, batch)                    — training objective
   forward(params, batch)                 — prefill-style full forward
   init_cache / decode_step / prefill     — serving
@@ -11,8 +11,10 @@
 It serves every family of the JAX package: ``dense``, ``vlm`` and
 ``moe`` (the MoE FFN on its dense reference path,
 ``repro_torch.models.moe``) through ``transformer``, ``ssm``
-(``ssm_lm``), ``hybrid`` and ``encdec``. ``param_specs`` and any
-``mesh`` raise ``NotImplementedError`` (ROADMAP A15f).
+(``ssm_lm``), ``hybrid`` and ``encdec``. ``dense``, ``vlm`` and ``moe``
+run on a mesh (an ``LMMesh``, with parameters and caches held as
+``repro_torch.models.placement`` says); the other families on a mesh
+raise ``NotImplementedError`` (ROADMAP A15f-2).
 """
 from __future__ import annotations
 
@@ -45,9 +47,8 @@ class ModelBundle:
     def param_shapes(self) -> dict:
         return self.param_set.shapes()
 
-    def param_specs(self, rules):
-        raise NotImplementedError(
-            "parameter sharding specs are not ported yet: ROADMAP A15f")
+    def param_specs(self, rules) -> dict:
+        return self.param_set.specs(rules)
 
     # ---- compute --------------------------------------------------------
     def loss(self, params, batch, mesh=None):

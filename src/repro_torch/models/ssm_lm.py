@@ -38,7 +38,7 @@ def _block_out(lp, cfg, x):
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             img_embeds=None, mesh=None):
     """Full-sequence forward. Returns (logits (B,S,V), 0.0 aux)."""
-    no_mesh(mesh)
+    no_mesh(mesh, "ssm")
     x = _embed(params, cfg, tokens)
     block = remat(_block_out, cfg, params)
     for lp in _layers(params, cfg.compute_dtype):
@@ -79,7 +79,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int | None = None, mesh=None):
     """Run the prompt, return (cache, last_logits). The cache is O(1) in
     the sequence length: the final SSD state and conv tails per layer."""
-    no_mesh(mesh)
+    no_mesh(mesh, "ssm")
     x = _embed(params, cfg, tokens)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len or s, device=x.device)
@@ -96,7 +96,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 token: torch.Tensor, mesh=None):
     """One decode step. token: (B, 1) i32. Returns (cache, logits (B,V));
     the state and conv tails are updated in place (module docstring)."""
-    no_mesh(mesh)
+    no_mesh(mesh, "ssm")
     x = _embed(params, cfg, token)
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
         x, (st, (hx, hb, hc)) = mamba_decode_step(

@@ -23,27 +23,52 @@ serving engine's lockstep invariant), from a device index, while rope
 uses each row's own ``length``.
 
 The FFN is pluggable: the MoE family (``repro_torch.models.moe``) runs
-its dense reference path here and returns its router's load-balance
-loss, which ``loss_fn`` adds. Any ``mesh`` (ROADMAP A15f) raises.
+its dense reference path here, or its expert-parallel path on a mesh,
+and returns its router's load-balance loss, which ``loss_fn`` adds.
+
+**On a mesh** (an ``LMMesh``; the realization is
+``repro_torch.models.placement``'s) the parameters are this rank's
+shards (``placement.Sharded``) and each layer gathers its leaves by
+their specs inside the layer (so remat gathers again rather than keeping
+the whole weights). The inputs are global, as JAX's arrays are: every
+rank passes the whole batch (or the whole ``(B, 1)`` token column) and
+computes on its rows of it, so the outputs (logits; the cache) are its
+rows. ``forward`` and ``loss_fn`` split the rows over the installed
+activation layout's batch axes (``act_sharding.batch_axes``); ``prefill``
+and ``decode_step`` over the cache's, ``launch.steps.batch_axes_for``.
+``loss_fn`` returns the global loss on every rank, whose gradient on a
+rank is that rank's share. The cache is held as ``launch.steps.
+cache_specs`` says: k and v sequence-sharded over ``model`` (their seq
+length must be divisible by it, as JAX's ``shard_map`` requires) and
+decoded with ``attention.flash_decode``; the step's token is written by
+the rank whose seq shard holds the clamped global index ``length[0]``,
+the other ranks writing nothing.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import act_sharding
 from repro_torch.models import attention as attn
+from repro_torch.models import placement
+from repro_torch.models.act_sharding import constrain
 from repro_torch.models.common import (ModelConfig, ParamSet, apply_rope,
                                        cast_params, cross_entropy_loss,
                                        rms_norm, rope_tables, silu)
 
 
-def no_mesh(mesh) -> None:
-    if mesh is not None:
+def no_mesh(mesh, family: str) -> None:
+    """The check of the families whose mesh paths wait: a mesh that is
+    not an ``LMMesh`` raises ``TypeError``, an ``LMMesh`` raises
+    ``NotImplementedError``."""
+    if placement.check_mesh(mesh) is not None:
         raise NotImplementedError(
-            "the LM on a mesh (flash_decode, sharding rules, "
-            "act_sharding) is not ported yet: ROADMAP A15f")
+            f"the {family} family on a mesh (its cache leaves sharded by "
+            "heads, channels or kv heads) is not ported yet: ROADMAP A15f-2")
 
 
 # ---------------------------------------------------------------------------
@@ -100,13 +125,22 @@ def _layers(params: dict, dtype, prefix: str = "layers"):
         yield {k: v[i] for k, v in stacked.items()}
 
 
-def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor, pl=None):
+    if pl is not None:
+        return pl.full("embed", cfg.compute_dtype)[tokens.long()]
     return params["embed"][tokens.long()].to(cfg.compute_dtype)
 
 
-def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
+def _head(params: dict, cfg: ModelConfig, pl=None) -> torch.Tensor:
+    if pl is not None:
+        return (pl.full("embed", cfg.compute_dtype).T if cfg.tie_embeddings
+                else pl.full("lm_head", cfg.compute_dtype))
     return (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(cfg.compute_dtype)
+
+
+def _norm(params: dict, name: str, pl=None) -> torch.Tensor:
+    return params[name] if pl is None else pl.full(name, params[name].dtype)
 
 
 def qkv(lp: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -135,11 +169,12 @@ def mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
     return (gate * up) @ lp["w_down"].to(x.dtype)
 
 
-def make_ffn(cfg: ModelConfig, mesh=None):
-    no_mesh(mesh)
+def make_ffn(cfg: ModelConfig, mesh=None, bat: tuple = ()):
+    """The layer's FFN: ``ffn(lp, x) -> (y, aux)``; on a mesh the MoE's
+    expert-parallel path over rows split over ``bat``."""
     if cfg.family == "moe":
         from repro_torch.models.moe import moe_ffn
-        return functools.partial(moe_ffn, cfg=cfg, mesh=mesh)
+        return functools.partial(moe_ffn, cfg=cfg, mesh=mesh, bat=bat)
 
     def ffn(lp, x):  # the dense FFN has no auxiliary loss
         return mlp(lp, x), 0.0
@@ -147,21 +182,38 @@ def make_ffn(cfg: ModelConfig, mesh=None):
     return ffn
 
 
-def decoder_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor,
-                  positions, ffn) -> tuple[torch.Tensor, torch.Tensor]:
+def decoder_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, positions,
+                  ffn, pl=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm GQA block over the full sequence. ``positions``: (S,), or
-    the (cos, sin) pair ``rope_tables`` makes of them. Returns (x,
-    aux_loss)."""
+    the (cos, sin) pair ``rope_tables`` makes of them; ``pl``: the call's
+    ``placement.Place`` on a mesh (``lp`` then holds local slices,
+    gathered here). Returns (x, aux_loss)."""
+    if pl is not None:
+        lp = pl.layer(lp)
     rope_cs = positions if isinstance(positions, tuple) else rope_tables(
         positions, cfg.d_head, cfg.rope_theta)
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = constrain(rms_norm(x, lp["ln1"], cfg.norm_eps), "matmul_in")
     q, k, v = qkv_rope(lp, cfg, h, rope_cs)
     o = attn.blockwise_attention(q, k, v, chunk=cfg.attn_chunk, causal=True)
     b, s = x.shape[:2]
     x = x + o.reshape(b, s, -1) @ lp["wo"].to(x.dtype)
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    h = constrain(rms_norm(x, lp["ln2"], cfg.norm_eps), "matmul_in")
     y, aux = ffn(lp, h)
-    return x + y, aux
+    return constrain(x + y), aux
+
+
+def place(params: dict, cfg: ModelConfig, mesh, bat: tuple = ()):
+    """The call's ``placement.Place`` on a mesh (None without one): the
+    expert matrices keep their expert dimension split over ``model``
+    where their specs split it so."""
+    if placement.check_mesh(mesh) is None:
+        return None
+    keep = {}
+    if cfg.family == "moe" and isinstance(params, placement.Sharded):
+        from repro_torch.models.moe import EXPERT_LEAVES
+        keep = {k: (0,) for k in EXPERT_LEAVES if placement.axes_of(
+            params.spec(f"layers/{k}")[1]) == ("model",)}
+    return placement.Place(mesh, params, bat, keep)
 
 
 # ---------------------------------------------------------------------------
@@ -178,8 +230,8 @@ def remat(layer, cfg: ModelConfig, params: dict):
     return layer
 
 
-def _prefix(params, cfg, tokens, img_embeds):
-    x = _embed(params, cfg, tokens)
+def _prefix(params, cfg, tokens, img_embeds, pl=None):
+    x = _embed(params, cfg, tokens, pl)
     if img_embeds is not None:  # VLM: precomputed patch embeddings prefix
         x = torch.cat([img_embeds.to(cfg.compute_dtype), x], dim=1)
     return x
@@ -187,20 +239,33 @@ def _prefix(params, cfg, tokens, img_embeds):
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             img_embeds: torch.Tensor | None = None, mesh=None) -> tuple:
-    """Full-sequence forward. Returns (logits (B,S,V), aux_loss)."""
-    ffn = make_ffn(cfg, mesh)
-    x = _prefix(params, cfg, tokens, img_embeds)
+    """Full-sequence forward. Returns (logits (B,S,V), aux_loss); on a
+    mesh the logits are this rank's rows."""
+    pl = _rows_place(params, cfg, mesh, tokens.shape[0])
+    if pl is not None:
+        tokens, img_embeds = pl.rows(tokens), pl.rows(img_embeds)
+    ffn = make_ffn(cfg, mesh, pl.bat if pl else ())
+    x = _prefix(params, cfg, tokens, img_embeds, pl)
     s = x.shape[1]
     cs = rope_tables(torch.arange(s, device=x.device), cfg.d_head,
                      cfg.rope_theta)
     layer = remat(decoder_layer, cfg, params)
     aux = 0.0
     for lp in _layers(params, cfg.compute_dtype):
-        x, a = layer(lp, cfg, x, cs, ffn)
+        x, a = layer(lp, cfg, x, cs, ffn, pl)
         aux = aux + a
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head(params, cfg), torch.as_tensor(
+    x = rms_norm(x, _norm(params, "final_norm", pl), cfg.norm_eps)
+    return x @ _head(params, cfg, pl), torch.as_tensor(
         aux, dtype=torch.float32, device=x.device)
+
+
+def _rows_place(params, cfg, mesh, b: int):
+    """The full-sequence forward's ``Place``: rows split over the
+    activation layout's batch axes."""
+    if placement.check_mesh(mesh) is None:
+        return None
+    return place(params, cfg, mesh, placement.greedy_axes(
+        mesh, act_sharding.batch_axes(mesh), b))
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, mesh=None):
@@ -212,8 +277,34 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, mesh=None):
     if batch.get("img_embeds") is not None:
         t_img = batch["img_embeds"].shape[1]
         logits = logits[:, t_img:]
+    if placement.check_mesh(mesh) is not None:
+        pl = _rows_place(params, cfg, mesh, labels.shape[0])
+        return mesh_loss(logits, pl.rows(labels), aux, cfg, pl)
     ce = cross_entropy_loss(logits, labels.clamp_min(0), labels >= 0)
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+def mesh_loss(logits, labels, aux, cfg: ModelConfig, pl):
+    """The loss of this rank's rows as its share of the global loss, and
+    the global loss (the shares' sum over the mesh): the token mean of
+    JAX's ``cross_entropy_loss`` over the global batch (its mask count
+    summed over the rows' axes; each share divided by the ranks that
+    compute the same rows) plus the load-balance loss (global on every
+    rank, a 1/n share each). Returns (global loss, metrics)."""
+    mesh = pl.mesh
+    mask = (labels >= 0).float()
+    logits = logits.float()
+    lmax = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - lmax).sum(dim=-1)) + lmax[..., 0]
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    tok = lse - gold + 1e-4 * lse.square()
+    n_tok = placement.reduce(mask.sum(), mesh, pl.bat).clamp_min(1.0)
+    ce_share = (tok * mask).sum() / n_tok / pl.rep
+    axes = mesh.auto_axes
+    share = ce_share + cfg.router_aux_weight * aux / mesh.size(axes)
+    loss = placement.total(share, mesh, axes)
+    ce = placement.reduce(ce_share.detach(), mesh, axes)
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -233,62 +324,143 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     }
 
 
+def _write(c: torch.Tensor, at: torch.Tensor, new: torch.Tensor, valid):
+    """``new`` (B, 1, KV, Dh) into ``c`` (B, T, KV, Dh) at position ``at``
+    (a device index), where ``valid`` (None: always) holds."""
+    new = new.to(c.dtype)
+    if valid is not None:
+        new = torch.where(valid.view(1, 1, 1, 1), new, c.index_select(1, at))
+    c.index_copy_(1, at, new)
+
+
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 token: torch.Tensor, mesh=None) -> tuple[dict, torch.Tensor]:
     """One decode step. token: (B, 1) i32. Returns (cache, logits (B,V)).
 
     Updates ``cache["k"]`` and ``cache["v"]`` in place (see the module
-    docstring); the returned cache holds them and ``length + 1``.
+    docstring); the returned cache holds them and ``length + 1``. On a
+    mesh the cache is this rank's ``placement.Sharded`` block and
+    ``token`` the whole column; the logits are this rank's rows.
     """
-    ffn = make_ffn(cfg, mesh)
-    x = _embed(params, cfg, token)                             # (B,1,D)
+    pl, valid = None, None
+    if placement.check_mesh(mesh) is not None:
+        if not isinstance(cache, placement.Sharded):
+            raise TypeError("on a mesh the cache is this rank's block: "
+                            "placement.shard_cache(...) or a mesh prefill")
+        t_g = cache.shapes["k"][2]
+        if "model" in mesh.axis_names and (
+                t_g % mesh.size("model") or placement.axes_of(
+                    cache.spec("k")[2]) != ("model",)):
+            raise ValueError(
+                f"flash_decode shards the cache's {t_g} positions over "
+                f"the {mesh.size('model')} ranks of 'model': max_len "
+                "must be divisible by the model axis")
+        bat = placement.axes_of(cache.spec("k")[1])
+        pl = place(params, cfg, mesh, bat)
+        token = pl.rows(token)
+    ffn = make_ffn(cfg, mesh, pl.bat if pl else ())
+    x = _embed(params, cfg, token, pl)                         # (B,1,D)
     b = x.shape[0]
     length = cache["length"]                                   # (B,)
     length1 = length + 1
     t = cache["k"].shape[2]
-    # the lockstep write position; dynamic_update_slice clamps its start
-    at = length[:1].clamp(max=t - 1).long()
+    use_flash = pl is not None and "model" in mesh.axis_names
+    if pl is None:
+        # the lockstep write position; dynamic_update_slice clamps its start
+        at = length[:1].clamp(max=t - 1).long()
+    else:
+        # the global row 0's length (held by the rows' first block)
+        first = torch.full_like(length[:1], -1) if mesh.index(pl.bat) else \
+            length[:1]
+        at = placement.reduce(first, mesh, pl.bat, dist.ReduceOp.MAX
+                              ).clamp(max=t_g - 1).long()
+        if use_flash:
+            # written by the rank whose seq shard holds the position
+            at = at - mesh.index("model") * t
+            valid = (at >= 0) & (at < t)
+            at = at.clamp(0, t - 1)
     cs = rope_tables(length[:, None], cfg.d_head, cfg.rope_theta)
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
+        if pl is not None:
+            lp = pl.layer(lp)
         kc, vc = cache["k"][i], cache["v"][i]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = qkv_rope(lp, cfg, h, cs)
-        kc.index_copy_(1, at, k.to(kc.dtype))
-        vc.index_copy_(1, at, v.to(vc.dtype))
-        o = attn.decode_attention(q, kc, vc, length1)
+        _write(kc, at, k, valid)
+        _write(vc, at, v, valid)
+        if use_flash:
+            o = attn.flash_decode(mesh, q, kc, vc, length1)
+        else:
+            o = attn.decode_attention(q, kc, vc, length1)
         x = x + o.reshape(b, 1, -1) @ lp["wo"].to(x.dtype)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         y, _ = ffn(lp, h)
         x = x + y
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ _head(params, cfg))[:, 0]
-    return {"k": cache["k"], "v": cache["v"], "length": length1}, logits
+    x = rms_norm(x, _norm(params, "final_norm", pl), cfg.norm_eps)
+    logits = (x @ _head(params, cfg, pl))[:, 0]
+    out = {"k": cache["k"], "v": cache["v"], "length": length1}
+    return (cache.with_values(out) if pl is not None else out), logits
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int | None = None, mesh=None,
-            img_embeds: torch.Tensor | None = None) -> tuple[dict, torch.Tensor]:
+            img_embeds: torch.Tensor | None = None
+            ) -> tuple[dict, torch.Tensor]:
     """Run the full prompt, build a new cache. Returns (cache,
-    last_logits)."""
-    ffn = make_ffn(cfg, mesh)
-    x = _prefix(params, cfg, tokens, img_embeds)
+    last_logits); on a mesh this rank's block of the cache
+    (``launch.steps.cache_specs``) and its rows of the logits."""
+    pl = None
+    if placement.check_mesh(mesh) is not None:
+        from repro_torch.launch.steps import batch_axes_for
+        pl = place(params, cfg, mesh, batch_axes_for(mesh, tokens.shape[0]))
+        b_g = tokens.shape[0]
+        tokens, img_embeds = pl.rows(tokens), pl.rows(img_embeds)
+    ffn = make_ffn(cfg, mesh, pl.bat if pl else ())
+    x = _prefix(params, cfg, tokens, img_embeds, pl)
     b, s = x.shape[:2]
     max_len = max_len or s
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    if s > max_len:
+        raise ValueError(f"a prompt of {s} positions does not fit a cache "
+                         f"of {max_len}")
+    if pl is None:
+        cache, seq = init_cache(cfg, b, max_len, device=x.device), slice(0, s)
+    else:
+        cache = _mesh_cache(cfg, b_g, max_len, mesh, x.device)
+        lo = placement.block(cache.spec("k"), cache.shapes["k"], mesh)[2].start
+        seq = slice(min(lo, s), min(lo + cache["k"].shape[2], s))
     cs = rope_tables(torch.arange(s, device=x.device), cfg.d_head,
                      cfg.rope_theta)
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if pl is not None:
+            lp = pl.layer(lp)
+        h = constrain(rms_norm(x, lp["ln1"], cfg.norm_eps), "matmul_in")
         q, k, v = qkv_rope(lp, cfg, h, cs)
         o = attn.blockwise_attention(q, k, v, chunk=cfg.attn_chunk,
                                      causal=True)
         x2 = x + o.reshape(b, s, -1) @ lp["wo"].to(x.dtype)
-        h2 = rms_norm(x2, lp["ln2"], cfg.norm_eps)
+        h2 = constrain(rms_norm(x2, lp["ln2"], cfg.norm_eps), "matmul_in")
         y, _ = ffn(lp, h2)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-        x = x2 + y
-    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = (x @ _head(params, cfg))[:, 0]
+        n = seq.stop - seq.start
+        cache["k"][i, :, :n] = k[:, seq]
+        cache["v"][i, :, :n] = v[:, seq]
+        x = constrain(x2 + y)
+    x = rms_norm(x[:, -1:], _norm(params, "final_norm", pl), cfg.norm_eps)
+    logits = (x @ _head(params, cfg, pl))[:, 0]
     cache["length"].fill_(s)
     return cache, logits
+
+
+def _mesh_cache(cfg: ModelConfig, b: int, max_len: int, mesh, device):
+    """This rank's zero block of a cache of ``b`` rows, held as
+    ``launch.steps.cache_specs`` says."""
+    from repro_torch.launch.steps import cache_specs
+    shapes = {k: tuple(v.shape) for k, v in init_cache(
+        cfg, b, max_len, device="meta").items()}
+    specs = cache_specs(cfg, shapes, mesh, b)
+    local = {}
+    for k, shp in shapes.items():
+        blk = placement.block(specs[k], shp, mesh)
+        local[k] = torch.zeros([sl.stop - sl.start for sl in blk],
+                               dtype=torch.int32 if k == "length"
+                               else cfg.compute_dtype, device=device)
+    return placement.Sharded(local, specs, shapes, mesh)

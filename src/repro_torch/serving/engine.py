@@ -12,6 +12,16 @@ its parameters' device and holds one copy of them in the compute dtype,
 made once; the values are those JAX casts inside every call. Each tick
 reads its sampled tokens from the device once.
 
+With ``mesh`` (an ``LMMesh``; the parameters this rank's
+``placement.Sharded`` blocks) every rank runs the engine on the same
+requests (SPMD). A rank holds its rows of the wave's cache and computes
+its rows of the logits; after each prefill and decode step its sampled
+tokens are gathered over the cache's batch axes in one small collective,
+so every rank keeps the same slots, outputs and finished list. Sampling
+at a temperature draws the noise of the whole batch from ``rng`` on every
+rank and takes the rank's rows of it, so the draws are the unsharded
+engine's.
+
 ``ReconstructionJob`` and ``ReconstructionServer`` serve
 surface-reconstruction jobs in fleet slots, one batched program per wave,
 with the JAX server's scheduling and supervision rules. Every fleet wave
@@ -42,9 +52,9 @@ from repro_torch.gson import faults as gf
 from repro_torch.gson.fleet import FleetSession, FleetSpec
 from repro_torch.gson.session import Session
 from repro_torch.gson.spec import resolve_variant
+from repro_torch.models import placement
 from repro_torch.models.common import cast_params
 from repro_torch.models.registry import ModelBundle
-from repro_torch.models.transformer import no_mesh
 
 
 @dataclass
@@ -72,7 +82,10 @@ class ServeEngine:
 
     def __init__(self, bundle: ModelBundle, params, cfg: ServeConfig,
                  mesh=None, rng: torch.Generator | None = None):
-        no_mesh(mesh)
+        self.mesh = placement.check_mesh(mesh)
+        if mesh is not None and not isinstance(params, placement.Sharded):
+            raise TypeError("on a mesh the parameters are this rank's "
+                            "shards: placement.shard_params(...)")
         self.bundle = bundle
         self.params = params
         # the compute-dtype copy every call reads (the same tensors when
@@ -123,7 +136,8 @@ class ServeEngine:
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         batch.update(self._modality_stub(b))
         self.cache, logits = self.bundle.prefill(
-            self.compute_params, batch, max_len=self.cfg.max_len)
+            self.compute_params, batch, max_len=self.cfg.max_len,
+            mesh=self.mesh)
         self.prefills += 1
         nxt = self._sample(logits)
         self.tokens = nxt[:, None]
@@ -145,12 +159,25 @@ class ServeEngine:
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy: ``argmax`` in the logits' own dtype (the first index
-        on a tie, as ``jnp.argmax``). Else Gumbel-max from ``rng``."""
+        on a tie, as ``jnp.argmax``). Else Gumbel-max from ``rng``. On a
+        mesh: the whole batch's tokens, from this rank's rows (collective
+        over the cache's batch axes)."""
+        bat = (placement.axes_of(self.cache.spec("k")[1])
+               if self.mesh is not None else ())
         if self.cfg.temperature <= 0.0:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        z = logits.float() / self.cfg.temperature
-        e = torch.empty_like(z).exponential_(generator=self.rng)
-        return torch.argmax(z - torch.log(e), dim=-1).to(torch.int32)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            z = logits.float() / self.cfg.temperature
+            n = z.shape[0]
+            e = torch.empty((n * self.mesh.size(bat) if bat else n,
+                             z.shape[-1]), dtype=z.dtype, device=z.device
+                            ).exponential_(generator=self.rng)
+            e = e.narrow(0, self.mesh.index(bat) * n, n) if bat else e
+            nxt = torch.argmax(z - torch.log(e), dim=-1).to(torch.int32)
+        if bat:
+            with torch.no_grad():
+                nxt = placement.gather(nxt, self.mesh, bat, 0)
+        return nxt
 
     # ------------------------------------------------------------------
     def step(self):
@@ -162,7 +189,7 @@ class ServeEngine:
                 self._admit_wave()
             return
         self.cache, logits = self.bundle.decode_step(
-            self.compute_params, self.cache, self.tokens)
+            self.compute_params, self.cache, self.tokens, mesh=self.mesh)
         nxt = self._sample(logits)
         self.tokens = nxt[:, None]
         self.decode_steps += 1

@@ -1,5 +1,4 @@
-"""Training of the port's LM (``repro.training``'s counterpart) on one
-device: the optimizers (``optimizer``), the train step with microbatch
-accumulation (``trainer``) and the error-feedback state
-(``compression``). The pod-manual step and ``compressed_psum`` need a
-process group and wait for the LM's meshes (ROADMAP A15f)."""
+"""Training of the port's LM (``repro.training``'s counterpart): the
+optimizers (``optimizer``), the train step with microbatch accumulation
+on one device or a mesh, with its pod-manual variant (``trainer``), and
+the int8 error-feedback pod reduction (``compression``)."""

@@ -44,6 +44,8 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.models.moe\n"
         "import repro_torch.models.ssm, repro_torch.models.ssm_lm, "
         "repro_torch.models.hybrid, repro_torch.models.encdec\n"
+        "import repro_torch.launch.mesh, repro_torch.models.placement, "
+        "repro_torch.models.act_sharding\n"
         "from repro_torch.configs import all_configs\n"
         "all_configs()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -1516,6 +1516,93 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     assert not list(tmp_path.glob("*.so"))
 
 
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """A one-rank NCCL world in this process and ``make_mesh_for_env``'s
+    (data 1, model 1) mesh on it."""
+    import torch.distributed as dist
+    from repro_torch.launch.train import make_mesh_for_env
+    assert not dist.is_initialized(), "a process group is already running"
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh_for_env()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_lm_mesh_flash_decode_on_card(nccl_mesh):
+    """``flash_decode`` on a one-rank NCCL mesh (one seq shard: nothing to
+    merge) equals ``decode_attention`` on the card bitwise, a fully masked
+    row among the lengths."""
+    from repro_torch.models import attention as attn
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((4, 1, 8, 16), generator=g, device="cuda")
+    k, v = (torch.randn((4, 32, 2, 16), generator=g, device="cuda")
+            for _ in range(2))
+    length = torch.tensor([32, 17, 0, 25], dtype=torch.int32, device="cuda")
+    got = attn.flash_decode(nccl_mesh, q, k, v, length)
+    assert torch.equal(got, attn.decode_attention(q, k, v, length))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [16, 1])
+def test_lm_mesh_moe_ep_on_card(nccl_mesh, s):
+    """``moe_ffn_ep`` of the qwen2-moe smoke config on a one-rank NCCL mesh
+    against the dense reference on the card, without drops (capacity 8):
+    within 2e-3, the aux within 1e-2 (JAX's tolerances)."""
+    from repro_torch.models.moe import moe_ffn_ep, moe_ffn_reference
+    cfg, bundle = _lm_smoke("qwen2-moe-a2.7b")
+    cfg = cfg.replace(capacity_factor=8.0)
+    params = bundle.init(0, device="cuda")
+    lp = {k[len("layers/"):]: v[0] for k, v in params.items()
+          if k.startswith("layers/")}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = 0.5 * torch.randn((8, s, cfg.d_model), generator=g, device="cuda")
+    y, aux = moe_ffn_ep(lp, x, cfg, nccl_mesh)
+    y_ref, aux_ref = moe_ffn_reference(lp, x, cfg)
+    torch.testing.assert_close(y, y_ref, rtol=2e-3, atol=2e-3)
+    assert float(aux) == pytest.approx(float(aux_ref), rel=1e-2)
+
+
+@pytest.mark.cuda
+def test_lm_mesh_decode_on_card(nccl_mesh):
+    """The qwen1.5-0.5b smoke config's prefill and three decode steps
+    through ``build_prefill_step`` / ``build_decode_step`` on a one-rank
+    NCCL mesh against the unmeshed model on the card: within 1e-5."""
+    from repro_torch.launch import steps
+    from repro_torch.models import placement
+    from repro_torch.models.common import ShapeCfg
+    cfg, bundle = _lm_smoke("qwen1.5-0.5b")
+    dep = steps.deploy_for("qwen1.5-0.5b", "decode_32k")
+    rules = steps.rules_for_deploy(nccl_mesh, dep)
+    full = bundle.init(0, device="cuda")
+    params = placement.shard_params(full, bundle.param_specs(rules),
+                                    nccl_mesh)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab, (4, 12)).astype(np.int32)).cuda()
+    pstep, _ = steps.build_prefill_step(
+        bundle, nccl_mesh, rules, ShapeCfg("p", 16, 4, "prefill"), dep)
+    dstep, _ = steps.build_decode_step(
+        bundle, nccl_mesh, rules, ShapeCfg("d", 16, 4, "decode"), dep)
+    out = []
+    for run in ((pstep, dstep, params), (None, None, full)):
+        if run[0] is None:
+            cache, logits = bundle.prefill(full, {"tokens": toks[:, :9]},
+                                           max_len=16)
+            dec = lambda c, t: bundle.decode_step(full, c, t)  # noqa: E731
+        else:
+            cache, logits = pstep(params, {"tokens": toks[:, :9]})
+            dec = lambda c, t: dstep(params, c, t)  # noqa: E731
+        got = [logits]
+        for j in range(9, 12):
+            cache, logits = dec(cache, toks[:, j:j + 1])
+            got.append(logits)
+        out.append(torch.stack(got))
+    torch.testing.assert_close(out[0], out[1], rtol=1e-5, atol=1e-5)
+
+
 def test_chip_smoke_names_every_kernel_of_the_sources():
     """chip_smoke.py counts a wrapper's device launches and sums the
     port's kernels in its profile by the names in DEVICE_KERNELS: every

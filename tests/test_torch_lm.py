@@ -11,6 +11,7 @@ with ``lm_params_from_numpy``. At f32, forward logits, the loss, prefill
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -21,12 +22,15 @@ import torch
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_config as jax_get_config
 from repro.data.tokens import TokenStream as JaxTokenStream
+from repro.models import common as jcommon
 from repro.models import registry as jreg
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
 from repro_torch.data.tokens import TokenStream, synthetic_batch
-from repro_torch.models import registry
-from repro_torch.models.common import SMOKE_SHAPES, cast_params
+from repro_torch.launch.mesh import LMMesh
+from repro_torch.models import placement, registry
+from repro_torch.models.common import (SMOKE_SHAPES, cast_params,
+                                       rules_for_mesh)
 from repro_torch.utils import tree_bytes, tree_param_count
 
 torch.set_num_threads(1)
@@ -308,12 +312,26 @@ def test_the_other_families_build_with_jax_tables(arch):
 
 
 def test_mesh_and_param_specs_raise(pair):
-    *_, cfg, tb, tp = pair
+    """A mesh that is no ``LMMesh`` raises ``TypeError``; the parameters'
+    specs are JAX's; on a 1 x 1 ``LMMesh`` (whose collectives are the
+    identity) the forward from ``shard_params`` equals the unmeshed one."""
+    jcfg, jb, _, cfg, tb, tp = pair
     toks, img = inputs(cfg)
-    with pytest.raises(NotImplementedError, match="A15f"):
+    with pytest.raises(TypeError, match="LMMesh"):
         tb.forward(tp, tbatch(toks, img), mesh=object())
-    with pytest.raises(NotImplementedError, match="A15f"):
-        tb.param_specs(None)
+    shape = SimpleNamespace(axis_names=("data", "model"),
+                            devices=np.empty((16, 16)))
+    specs = tb.param_specs(rules_for_mesh(shape))
+    assert {k: tuple(v) for k, v in specs.items()} == {
+        k: tuple(v) for k, v in jb.param_specs(
+            jcommon.rules_for_mesh(shape)).items()}
+    mesh = LMMesh(("data", "model"), {"data": 1, "model": 1},
+                  {"data": 0, "model": 0}, {})
+    sharded = placement.shard_params(tp, tb.param_specs(rules_for_mesh(mesh)),
+                                     mesh)
+    want, _ = tb.forward(tp, tbatch(toks, img))
+    got, _ = tb.forward(sharded, tbatch(toks, img), mesh=mesh)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_params_round_trip_through_numpy(pair):

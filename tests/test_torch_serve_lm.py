@@ -17,6 +17,9 @@ from repro.serving.engine import ServeEngine as JaxServeEngine
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import LMMesh
+from repro_torch.models import placement
+from repro_torch.models.common import rules_for_mesh
 from repro_torch.models.registry import get_bundle, smoke_config
 from repro_torch.serving import ServeConfig, ServeEngine
 
@@ -209,9 +212,29 @@ def test_launch_serve_smoke_on_the_cpu_finishes_every_request(capsys):
 
 
 def test_a_mesh_raises(served):
+    """A mesh that is no ``LMMesh`` raises ``TypeError``, and so do whole
+    parameters on an ``LMMesh`` (a rank holds its shards); on a 1 x 1
+    mesh the engine serves the unmeshed engine's tokens."""
     cfg, bundle, params = served
-    with pytest.raises(NotImplementedError, match="A15f"):
+    with pytest.raises(TypeError, match="LMMesh"):
         ServeEngine(bundle, params, ServeConfig(), mesh=object())
+    mesh = LMMesh(("data", "model"), {"data": 1, "model": 1},
+                  {"data": 0, "model": 0}, {})
+    with pytest.raises(TypeError, match="shard_params"):
+        ServeEngine(bundle, params, ServeConfig(), mesh=mesh)
+    sharded = placement.shard_params(
+        params, bundle.param_specs(rules_for_mesh(mesh)), mesh)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(2, cfg.vocab, size=int(rng.integers(3, 9)))
+               for _ in range(5)]
+    outs = []
+    for p, m in ((params, None), (sharded, mesh)):
+        eng = ServeEngine(bundle, p, ServeConfig(batch=4, max_len=32,
+                                                 eos_id=-1), mesh=m)
+        for i, q in enumerate(prompts):
+            eng.submit(q, rid=i, max_tokens=4)
+        outs.append(sorted((r.rid, r.out) for r in eng.run()))
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",

@@ -40,10 +40,10 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.data.tokens import TokenStream, synthetic_batch
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import LMMesh
 from repro_torch.models import registry, transformer
+from repro_torch.models import common as tcommon
 from repro_torch.models.common import SHAPES, ShapeCfg
-from repro_torch.models.moe import moe_ffn
-from repro_torch.training import compression
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.optimizer import OptConfig
 from repro_torch.training.trainer import (TrainConfig, grad_fn,
@@ -501,34 +501,37 @@ def test_build_train_step_on_one_device(setup):
 
 
 def test_what_waits_for_the_meshes_raises(setup):
+    """What still raises: a mesh that is no ``LMMesh`` (``TypeError``), the
+    pod-manual step without a mesh that has a pod axis, the SSM, hybrid
+    and enc-dec families on a mesh (ROADMAP A15f-2) and ``lower_cell``
+    (A15g). The step factories run without a mesh, as on one device."""
     (_, _, _, cfg, tb, tp), _ = setup
     for kw in ({"compress_pods": True}, {"straggler_masking": True}):
-        with pytest.raises(NotImplementedError, match="A15f"):
+        with pytest.raises(ValueError, match="pod"):
             make_train_step(tb, tcfg=TrainConfig(**kw))
-    with pytest.raises(NotImplementedError, match="A15f"):
+    with pytest.raises(TypeError, match="LMMesh"):
         make_train_step(tb, mesh=object())
-    with pytest.raises(NotImplementedError, match="A15f"):
-        opt_lib.match_opt_specs(OptConfig(), tb.param_shapes(), None)
-    with pytest.raises(NotImplementedError, match="A15f"):
-        compression.compressed_psum({}, {}, "pod", 2)
+    mesh = LMMesh(("data", "model"), {"data": 1, "model": 1},
+                  {"data": 0, "model": 0}, {})
+    with pytest.raises(ValueError, match="pod"):
+        make_train_step(tb, mesh, tcommon.rules_for_mesh(mesh),
+                        TrainConfig(compress_pods=True))
     ef = init_train_state(tb, tcfg=TrainConfig(compress_pods=True),
                           abstract=True)[2]
     assert sorted(ef) == sorted(tp) and all(
         v.dtype == torch.float32 for v in ef.values())
-    for fn, args in ((steps.axis_sizes, (object(),)),
-                     (steps.batch_axes_for, (None, 4)),
-                     (steps.rules_for_deploy, (None, steps.DeployCfg())),
-                     (steps.param_tree, (tb, None, None)),
-                     (steps.batch_specs, (cfg, SHAPES["train_4k"], None)),
-                     (steps.cache_specs, (cfg, {}, None, 4)),
-                     (steps.build_prefill_step,
-                      (tb, None, None, SHAPES["prefill_32k"], None)),
-                     (steps.build_decode_step,
-                      (tb, None, None, SHAPES["decode_32k"], None))):
-        with pytest.raises(NotImplementedError, match="A15f"):
-            fn(*args)
+    for arch in ("mamba2-2.7b", "zamba2-2.7b", "whisper-medium"):
+        b = registry.get_bundle(registry.smoke_config(get_config(arch)))
+        with pytest.raises(NotImplementedError, match="A15f-2"):
+            b.loss({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+                        "labels": torch.zeros((1, 4), dtype=torch.int32),
+                        "frames": torch.zeros((1, b.cfg.encoder_ctx,
+                                               b.cfg.d_model))}, mesh=mesh)
+    assert steps.axis_sizes(None) == {} and steps.batch_axes_for(None, 4) == ()
+    assert steps.cache_specs(cfg, {"length": (4,)}, mesh, 4) == {
+        "length": (("data",),)}
     with pytest.raises(NotImplementedError, match="A15g"):
         steps.lower_cell(cfg, "train_4k", None)
-    x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="A15f"):
-        moe_ffn({}, x, cfg, mesh=object())
+    with pytest.raises(TypeError, match="LMMesh"):
+        transformer.forward(tp, cfg, torch.zeros((1, 2), dtype=torch.int32),
+                            mesh=object())
