@@ -181,7 +181,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    shared block once per invocation, plus the cache, each SSM state and
    conv tail read and written, over HBM's rate). Then prefill + decode
    against the forward at f32 on the full-width model cut to
-   ``FAM_DEPTH`` (mamba2 2 layers, zamba2 12, whisper 2 + 2), over
+   ``FAM_DEPTH`` (mamba2 2 layers, zamba2 6, whisper 2 + 2), over
    ``FAM_PROMPT_LEN`` = 1024 tokens (four SSD chunks of 256) or, for
    whisper, over its 1500 frames (rtol = atol = ``LM_F32_TOL``); and the
    card against the CPU from the same f32 weights (rtol = atol =
@@ -207,7 +207,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    tokens through ``build_train_step(mesh)``, its loss within
    ``LMM_LOSS_TOL`` of the train phase's first step; (b) four gloo ranks
    that all name one card (NCCL cannot put two ranks on one card): the
-   f32 prefill + ``LMM_DECODE`` decode steps at B = ``LMM_B`` on (data 2,
+   f32 prefill + ``LMM_DECODE`` decode steps of ``LM_ARCH`` cut to
+   ``TRAIN_LAYERS`` at B = ``LMM_B`` on (data 2,
    model 2), the cache seq-sharded over model, within ``LMM_LOGIT_TOL``
    of (a)'s and the greedy tokens equal; a train step on ``TRAIN_BATCH`` x
    ``LMM_TRAIN_SEQ`` tokens (sequences cut from 4096), its loss within
@@ -220,7 +221,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    reference at capacity 8 (``LMM_MOE_TOL``, aux ``LMM_AUX_TOL``), and
    the drops at the config's capacity. Each part's wall and peak memory
    per rank. Four ranks on one card check correctness and host overhead,
-   not scaling.
+   not scaling. Then its ``families_mesh`` part (ROADMAP A15f-2, A15g;
+   the counters of every rank set to 0 before it and 0 after): (a) on the
+   NCCL rank each of ``FAM_ARCHS`` at full width served in bf16 through
+   ``ServeEngine(mesh=)`` on the families phase's requests, every token
+   equal to that phase's (tokens/s, decode ms per step, peak memory), and
+   the unmeshed references of (b); (b) on the four gloo ranks each family
+   at full width cut to ``FAM_MESH_DEPTH`` (mamba2 2 layers, zamba2 6,
+   whisper 2 + 2): the f32 prefill + ``LMM_DECODE`` decode steps on (data
+   2, model 2) within ``LMM_LOGIT_TOL`` of the same weights without a
+   mesh, greedy tokens equal, and a train step on ``TRAIN_BATCH`` x
+   ``FAM_MESH_SEQ`` tokens under the cell's deployment, its loss within
+   ``LMM_LOSS_TOL`` of the unmeshed step's; (c) ``launch.dryrun``'s
+   per-rank residency, step FLOPs and roofline terms of the train phase's
+   cell and the lm phase's decode cell beside their measured peaks.
 21. profile — where the main path's time goes (``torch.profiler``):
    device busy share and top kernels at B = 1, then device ops and
    device time per iteration and the busy share of the fleet at B = 8,
@@ -229,8 +243,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    "not measured" instead).
 22. report — the ``kernels`` JSON line (each kernel's launches on the main
    path, under ``paths`` on every path driven with the counters set to 0
-   before and read after (``lm``, ``families``, ``train`` and
-   ``lm_mesh`` among them, all 0), under ``paper`` the capacity that phase
+   before and read after (``lm``, ``families``, ``train``, ``lm_mesh``
+   and ``families_mesh`` among them, all 0), under ``paper`` the capacity that phase
    13 ran and its launches, ms and bound there, and for B1 under
    ``shapes`` phase 3's m = 1 and dense-pool figures), the card's line,
    and last ``{"ok": true, "device": {...}}``.
@@ -1890,8 +1904,10 @@ LM_MOE_ARCH = "qwen2-moe-a2.7b"
 # FAM_FORWARD_LEN tokens (whole chunks); the card against the CPU over a
 # prompt of FAM_CARD_CPU_LEN tokens
 FAM_ARCHS = ("mamba2-2.7b", "zamba2-2.7b", "whisper-medium")
+# (zamba2 cut from 12 to 6 layers, one shared invocation, to keep the
+# script under 780 s with the families_mesh part)
 FAM_DEPTH = {"mamba2-2.7b": dict(n_layers=2),
-             "zamba2-2.7b": dict(n_layers=12),
+             "zamba2-2.7b": dict(n_layers=6),
              "whisper-medium": dict(n_layers=2, n_encoder_layers=2)}
 FAM_PROMPT_LEN, FAM_FORWARD_LEN, FAM_CARD_CPU_LEN = 1024, 1280, 512
 
@@ -1903,9 +1919,10 @@ FAM_PROMPT_LEN, FAM_FORWARD_LEN, FAM_CARD_CPU_LEN = 1024, 1280, 512
 # gradient within TRAIN_GRAD_TOL of its parameter's largest gradient)
 TRAIN_ARCH = "qwen1.5-0.5b"
 # the trained model's depth, cut from 24 (at full width) to keep the
-# script inside its time and four ranks of the lm_mesh phase inside the
-# card's memory; the lm_mesh phase trains the same model
-TRAIN_LAYERS = 12
+# script inside its time with the families_mesh part and four ranks of
+# the lm_mesh phase inside the card's memory; the lm_mesh phase trains
+# the same model, and its dense prefill + decode runs that depth too
+TRAIN_LAYERS = 6
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_AT = 8, 4, 2
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_SEQ = 2, 256
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
@@ -1926,6 +1943,18 @@ LMM_TRAIN_SEQ = 512
 LMM_HEALTH = (1.0, 0.5)
 LMM_MOE_LAYERS, LMM_MOE_X = 2, (4, 64)
 LMM_MOE_TOL, LMM_AUX_TOL, LMM_MOE_CF = 2e-3, 1e-2, 8.0
+# its families_mesh parts: (a) on the NCCL rank, FAM_ARCHS served at full
+# width in bf16 through ServeEngine(mesh=), every token the families
+# phase's; (b) on the four gloo ranks, each family at full width cut in
+# depth to FAM_MESH_DEPTH (zamba2's 6 layers: one shared invocation): the
+# f32 prefill + LMM_DECODE decode steps on (data 2, model 2) against the
+# same weights without a mesh (run by (a)), and a train step on
+# TRAIN_BATCH x FAM_MESH_SEQ tokens (at most 128: the SSD hazard) under
+# the cell's deployment against the unmeshed step's loss
+FAM_MESH_DEPTH = {"mamba2-2.7b": dict(n_layers=2),
+                  "zamba2-2.7b": dict(n_layers=6),
+                  "whisper-medium": dict(n_layers=2, n_encoder_layers=2)}
+FAM_MESH_SEQ = 64
 # what one phase hands a later one (the lm phase's tokens, the train
 # phase's first loss)
 CARRIED = {}
@@ -2036,44 +2065,54 @@ def lm_checks(bundle, master, tag: str) -> dict:
 
 
 def lm_serve(bundle, params, requests, max_tokens, tag, batch=LM_BATCH,
-             max_len=LM_MAX_LEN):
-    """Serve ``requests`` through a ``ServeEngine`` whose prefill and
-    decode calls are timed with CUDA events; (engine, wall s, prefill ms
-    per wave, decode ms per step)."""
+             max_len=LM_MAX_LEN, mesh=None):
+    """Serve ``requests`` through a ``ServeEngine`` (on ``mesh`` if given)
+    whose prefill and decode calls are timed with CUDA events; (engine,
+    wall s, prefill ms per wave, decode ms per step)."""
     import dataclasses
 
     import torch
     from repro_torch.serving import ServeConfig, ServeEngine
     timed = dataclasses.replace(bundle)
     events = {"prefill": [], "decode_step": []}
+    # CUDA events on the card; the host clock where a CPU rehearsal runs
+    # this in a spawned rank
+    cuda = torch.cuda.is_available()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def stamp():
+        if not cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
 
     def wrap(name):
         fn = getattr(bundle, name)
 
         def call(*a, **kw):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
+            t0 = stamp()
             out = fn(*a, **kw)
-            ev[1].record()
-            events[name].append(ev)
+            events[name].append((t0, stamp()))
             return out
         return call
 
     timed.prefill, timed.decode_step = wrap("prefill"), wrap("decode_step")
     eng = ServeEngine(timed, params, ServeConfig(batch=batch, max_len=max_len,
-                                                 eos_id=-1, temperature=0.0))
+                                                 eos_id=-1, temperature=0.0),
+                      mesh=mesh)
     for i, p in enumerate(requests):
         eng.submit(p, rid=i, max_tokens=max_tokens)
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     done = eng.run()
-    torch.cuda.synchronize()
+    sync()
     wall = time.perf_counter() - t0
     assert sorted(r.rid for r in done) == list(range(len(requests))), tag
     assert all(len(r.out) == max_tokens for r in done), tag
     assert all(0 <= t < bundle.cfg.vocab for r in done for t in r.out), tag
-    ms = {k: sum(a.elapsed_time(b) for a, b in v) / max(len(v), 1)
+    ms = {k: sum(a.elapsed_time(b) if cuda else (b - a) * 1e3
+                 for a, b in v) / max(len(v), 1)
           for k, v in events.items()}
     return eng, wall, ms["prefill"], ms["decode_step"]
 
@@ -2153,8 +2192,9 @@ def phase_lm() -> dict:
             log(f"  {us / LM_PROFILE_STEPS:9.1f} us/step  "
                 f"{cnt / LM_PROFILE_STEPS:5.0f} per step  {name[:80]}")
     del eng, peng
+    CARRIED["lm_peak"] = torch.cuda.max_memory_allocated()
     log(f"lm {cfg.name}: peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"{CARRIED['lm_peak'] / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
 
     # 3. prefill + decode against the forward, f32 and bf16
@@ -2360,6 +2400,8 @@ def phase_families() -> dict:
                                              LM_MAX_TOKENS, cfg.name)
         assert (eng.prefills, eng.decode_steps) == (2, 62), (
             cfg.name, eng.prefills, eng.decode_steps)
+        CARRIED.setdefault("fam_tokens", {})[arch] = sorted(
+            (r.rid, list(r.out)) for r in eng.finished)
         toks = sum(len(r.out) for r in eng.finished)
         weights, cache_b = fam_decode_bytes(bundle, eng.compute_params)
         bound, _ = bound_ms(weights + cache_b, 0)
@@ -2562,6 +2604,7 @@ def phase_train() -> dict:
     peak = torch.cuda.max_memory_allocated()
     assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
     CARRIED["train_loss0"] = losses[0]
+    CARRIED["train_peak"], CARRIED["train_ms"] = peak, ms[1:]
     # where a microbatch's time goes: one sequence's gradient, profiled
     gfn = grad_fn(bundle)
     one = {k: v[:1] for k, v in batches[0].items()}
@@ -2683,6 +2726,11 @@ def lmm_cfg(arch: str, opts: dict, **kw):
     return (smoke_config(cfg) if opts.get("smoke") else cfg).replace(**kw)
 
 
+def lmm_depth(opts: dict) -> dict:
+    """The depth of the lm_mesh phase's dense model: ``TRAIN_LAYERS``."""
+    return {} if opts.get("smoke") else {"n_layers": TRAIN_LAYERS}
+
+
 def lmm_part(name: str, parts: dict, device: str):
     """A context timing one part of a rank's work (wall s, peak GiB)."""
     import torch
@@ -2704,48 +2752,66 @@ def lmm_part(name: str, parts: dict, device: str):
     return part()
 
 
-def lmm_prefill_decode(mesh, opts: dict, device: str):
-    """``LM_ARCH`` at f32 from seed 0 under its decode deployment's rules:
-    prefill of ``LMM_B`` prompts and ``LMM_DECODE`` decode steps through
-    ``build_prefill_step`` / ``build_decode_step``; this rank's rows of
-    the logits, (steps + 1, rows, V) on the host, and their first row."""
+def lmm_prefill_decode(mesh, opts: dict, device: str, arch: str = LM_ARCH,
+                       depth: dict | None = None):
+    """``arch`` (cut to ``depth``) at f32 from seed 0 under its decode
+    deployment's rules: prefill of ``LMM_B`` prompts (over random frames
+    for the enc-dec family) and ``LMM_DECODE`` decode steps through
+    ``build_prefill_step`` / ``build_decode_step``, on ``mesh`` or, with
+    None, on one device; this rank's rows of the logits, (steps + 1, rows,
+    V) on the host, their first row, and the shape of the cache's first
+    leaf block (k, or an SSM's state)."""
     import numpy as np
     import torch
     from repro_torch.launch import steps
     from repro_torch.models import placement
     from repro_torch.models.common import ShapeCfg
     from repro_torch.models.registry import get_bundle
-    cfg = lmm_cfg(LM_ARCH, opts, compute_dtype=torch.float32)
+    cfg = lmm_cfg(arch, opts, compute_dtype=torch.float32, **(depth or {}))
     bundle = get_bundle(cfg)
-    dep = steps.deploy_for(LM_ARCH, "decode_32k")
-    rules = steps.rules_for_deploy(mesh, dep)
-    params = placement.shard_params(bundle.init(0, device=device),
-                                    bundle.param_specs(rules), mesh)
-    toks = torch.from_numpy(np.random.default_rng(5).integers(
+    dep = steps.deploy_for(arch, "decode_32k")
+    rules = steps.rules_for_deploy(mesh, dep) if mesh is not None else None
+    params = bundle.init(0, device=device)
+    if mesh is not None:
+        params = placement.shard_params(params, bundle.param_specs(rules),
+                                        mesh)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(
         2, cfg.vocab, (LMM_B, LMM_PROMPT + LMM_DECODE)).astype(
             np.int32)).to(device)
+    batch = {"tokens": toks[:, :LMM_PROMPT]}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy((0.5 * rng.standard_normal(
+            (LMM_B, cfg.encoder_ctx, cfg.d_model))).astype(np.float32)).to(
+                device)
     pstep, _ = steps.build_prefill_step(
         bundle, mesh, rules, ShapeCfg("p", LMM_MAX_LEN, LMM_B, "prefill"), dep)
     dstep, _ = steps.build_decode_step(
         bundle, mesh, rules, ShapeCfg("d", LMM_MAX_LEN, LMM_B, "decode"), dep)
-    cache, logits = pstep(params, {"tokens": toks[:, :LMM_PROMPT]})
+    cache, logits = pstep(params, batch)
     out = [logits.float()]
     for j in range(LMM_DECODE):
         at = LMM_PROMPT + j
         cache, logits = dstep(params, cache, toks[:, at:at + 1])
         out.append(logits.float())
-    rows = placement.axes_of(cache.spec("k")[1])
+    lead = "k" if "k" in cache else "ssm"
+    if mesh is None:
+        return torch.stack(out).cpu(), 0, tuple(cache[lead].shape)
+    rows = placement.axes_of(cache.spec("length")[0])
     return (torch.stack(out).cpu(), mesh.index(rows) * out[0].shape[0],
-            tuple(cache["k"].shape))
+            tuple(cache[lead].shape))
 
 
 def lmm_train(mesh, opts: dict, device: str, seq: int, pod_manual=False,
-              health=None):
+              health=None, arch: str | None = None):
     """One ``build_train_step`` step of ``TRAIN_ARCH`` (f32 master, bf16
     compute, ``TRAIN_LAYERS`` layers, seed 0) on ``TRAIN_BATCH`` x ``seq``
     tokens (synthetic_batch step 0, seed 0) with the cell's deployment on
     ``mesh`` and the rules of ``launch.train``: (loss, params after the
-    step, ef or None, the deployment)."""
+    step, ef or None, the deployment). With ``arch``: that family's model
+    cut to ``FAM_MESH_DEPTH`` under the rules of the cell's deployment
+    (``steps.rules_for_deploy``), on ``mesh`` or, with None, on one
+    device."""
     import dataclasses
 
     import torch
@@ -2755,9 +2821,10 @@ def lmm_train(mesh, opts: dict, device: str, seq: int, pod_manual=False,
     from repro_torch.models.registry import get_bundle
     from repro_torch.training.compression import init_ef_state
     from repro_torch.training.trainer import init_train_state
-    cfg = lmm_cfg(TRAIN_ARCH, opts)
+    cfg = lmm_cfg(arch or TRAIN_ARCH, opts)
     if not opts.get("smoke"):
-        cfg = cfg.replace(n_layers=TRAIN_LAYERS)
+        cfg = cfg.replace(**(FAM_MESH_DEPTH[arch] if arch
+                             else {"n_layers": TRAIN_LAYERS}))
     bundle = get_bundle(cfg)
     shape = ShapeCfg("train_4k", seq, TRAIN_BATCH, "train")
     dep = steps.resolve_deploy(steps.deploy_for(cfg.name, "train_4k"), shape,
@@ -2765,7 +2832,11 @@ def lmm_train(mesh, opts: dict, device: str, seq: int, pod_manual=False,
     if pod_manual:
         dep = dataclasses.replace(dep, compress_pods=True,
                                   straggler_masking=True)
-    rules = rules_for_mesh(mesh)
+    if arch is None:
+        rules = rules_for_mesh(mesh)
+    else:
+        rules = (steps.rules_for_deploy(mesh, dep) if mesh is not None
+                 else None)
     step, _, tcfg = steps.build_train_step(bundle, mesh, rules, dep)
     params, opt, _ = init_train_state(bundle, mesh, rules, tcfg, rng=0,
                                       device=device)
@@ -2842,8 +2913,8 @@ def lm_mesh_nccl_world(rank: int, carried: dict, opts: dict) -> dict:
         del eng, params
 
     with lmm_part("prefill_decode", parts, device):
-        out["logits"], _, out["cache_k"] = lmm_prefill_decode(mesh, opts,
-                                                             device)
+        out["logits"], _, out["cache_k"] = lmm_prefill_decode(
+            mesh, opts, device, depth=lmm_depth(opts))
     with lmm_part("train_4096", parts, device):
         seq = 64 if opts.get("smoke") else 4096
         loss, params, _, dep = lmm_train(mesh, opts, device, seq)
@@ -2861,6 +2932,69 @@ def lm_mesh_nccl_world(rank: int, carried: dict, opts: dict) -> dict:
     out["parts"] = parts
     out["launches"] = read_counters("lm_mesh path (nccl rank)", ())
     out["backend"] = torch.distributed.get_backend()
+    zero_counters()
+    out["fam"] = fam_mesh_one_rank(mesh, carried, opts, device)
+    out["fam_launches"] = read_counters("families_mesh path (nccl rank)", ())
+    return out
+
+
+def fam_depth(arch: str, opts: dict) -> dict:
+    return {} if opts.get("smoke") else FAM_MESH_DEPTH[arch]
+
+
+def fam_mesh_one_rank(mesh, carried: dict, opts: dict, device: str) -> dict:
+    """families_mesh (a), on the NCCL rank's (data 1, model 1) mesh: each
+    of ``FAM_ARCHS`` at full width served in bf16 (its decode deployment)
+    by ``ServeEngine(mesh=)`` on the families phase's requests, every
+    token equal to that phase's (unmeshed) tokens; tokens/s, decode ms
+    per step (CUDA events) and peak memory. Then what (b) is held
+    against, without a mesh: each family cut to ``FAM_MESH_DEPTH``, the
+    f32 prefill + decode logits and a train step's loss."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import placement
+    from repro_torch.models.registry import get_bundle
+    out = {}
+    for arch in FAM_ARCHS:
+        parts = {}
+        with lmm_part("serve", parts, device):
+            cfg = lmm_cfg(arch, opts)
+            dep = steps.deploy_for(arch, "decode_32k")
+            assert dep.serve_bf16 and not dep.fsdp, dep
+            bundle = get_bundle(dataclasses.replace(
+                cfg, param_dtype=torch.bfloat16))
+            master = get_bundle(cfg).init(SEED, device=device)
+            params = placement.shard_params(
+                {k: v.to(torch.bfloat16) for k, v in master.items()},
+                bundle.param_specs(steps.rules_for_deploy(mesh, dep)), mesh)
+            del master
+            lm_serve(bundle, params, lm_prompts(2, cfg.vocab, seed=9), 2,
+                     f"{arch} warm-up", mesh=mesh)
+            eng, wall, pre_ms, dec_ms = lm_serve(
+                bundle, params, lm_prompts(LM_REQUESTS, cfg.vocab),
+                LM_MAX_TOKENS, arch, mesh=mesh)
+            got = sorted((r.rid, list(r.out)) for r in eng.finished)
+            want = carried.get("fam_tokens", {}).get(arch)
+            if want is not None:
+                diff = [(a[0], next(i for i, (x, y) in enumerate(
+                    zip(a[1], b[1])) if x != y))
+                    for a, b in zip(got, want) if a != b]
+                assert not diff, (
+                    f"{arch}: the meshed engine's tokens differ from the "
+                    f"families phase's (request, first token): {diff}")
+            del eng, params
+        with lmm_part("reference", parts, device):
+            logits, _, _ = lmm_prefill_decode(None, opts, device, arch,
+                                              fam_depth(arch, opts))
+            loss, params, _, dep = lmm_train(
+                None, opts, device, FAM_MESH_SEQ, arch=arch)
+            del params
+        out[arch] = {"serve": (wall, sum(len(o) for _, o in got), pre_ms,
+                               dec_ms, want is not None),
+                     "logits": logits, "loss": (loss, dep.microbatches),
+                     "parts": parts}
     return out
 
 
@@ -2888,7 +3022,7 @@ def lm_mesh_gloo_world(rank: int, opts: dict) -> dict:
 
     with lmm_part("prefill_decode", parts, device):
         out["logits"], out["row0"], out["cache_k"] = lmm_prefill_decode(
-            mesh, opts, device)
+            mesh, opts, device, depth=lmm_depth(opts))
 
     with lmm_part("train", parts, device):
         seq = LMM_TRAIN_SEQ if not opts.get("smoke") else 32
@@ -2967,6 +3101,22 @@ def lm_mesh_gloo_world(rank: int, opts: dict) -> dict:
         del lp, local
     out["parts"] = parts
     out["launches"] = read_counters(f"lm_mesh path (gloo rank {rank})", ())
+    zero_counters()
+    out["fam"] = {}
+    for arch in FAM_ARCHS:
+        fparts = {}
+        with lmm_part("prefill_decode", fparts, device):
+            logits, row0, lead = lmm_prefill_decode(
+                mesh, opts, device, arch, fam_depth(arch, opts))
+        with lmm_part("train", fparts, device):
+            loss, params, _, dep = lmm_train(mesh, opts, device,
+                                             FAM_MESH_SEQ, arch=arch)
+            del params
+        out["fam"][arch] = {"logits": logits, "row0": row0, "lead": lead,
+                            "loss": (loss, dep.microbatches),
+                            "parts": fparts}
+    out["fam_launches"] = read_counters(
+        f"families_mesh path (gloo rank {rank})", ())
     return out
 
 
@@ -3026,7 +3176,8 @@ def phase_lm_mesh(opts: dict | None = None) -> dict:
              for k in ("routed", "dropped_send", "dropped_expert")}
     log(f"lm_mesh (b): 4 gloo ranks on {opts['device']}, world {t_b:.1f} s "
         f"(collectives staged through the host: correctness and host "
-        f"overhead, not scaling); {LM_ARCH} f32 prefill + {LMM_DECODE} decode "
+        f"overhead, not scaling); {LM_ARCH} ({TRAIN_LAYERS} layers at full "
+        f"width) f32 prefill + {LMM_DECODE} decode "
         f"steps, B = {LMM_B}, on (data 2, model 2), the cache's k block "
         f"{ranks[0]['cache_k']} (seq over model; (a): {a['cache_k']}): max "
         f"|diff| from (a) {worst:.3g} (tol {LMM_LOGIT_TOL}), greedy tokens "
@@ -3059,9 +3210,126 @@ def phase_lm_mesh(opts: dict | None = None) -> dict:
     assert all(n == 0 for n in launches.values()), (
         f"GSON kernels launched on the lm_mesh path: {dict(launches)}")
     log(f"lm_mesh path launches: {dict(launches)} (none of the GSON "
-        f"kernels, on any rank); phase {time.perf_counter() - t_phase:.1f} s "
-        f" [{card}]")
-    return {"lm_mesh": {k: launches[k] for k in a["launches"]}}
+        f"kernels, on any rank)  [{card}]")
+    fam = families_mesh_report(a, ranks, opts, card)
+    log(f"lm_mesh phase (with families_mesh) "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return {"lm_mesh": {k: launches[k] for k in a["launches"]},
+            "families_mesh": fam}
+
+
+def families_mesh_report(a: dict, ranks: list, opts: dict, card: str) -> dict:
+    """The families_mesh checks and lines: (a)'s serving; (b)'s logits
+    against (a)'s unmeshed ones (within ``LMM_LOGIT_TOL``, greedy tokens
+    equal) and its train losses against (a)'s (``LMM_LOSS_TOL``); every
+    counter of every rank 0; (c) the dry run's residency of the cells
+    this script ran beside their measured peaks. Returns the path's
+    launches."""
+    for arch in FAM_ARCHS:
+        wall, toks, pre_ms, dec_ms, asserted = a["fam"][arch]["serve"]
+        log(f"families_mesh (a): {arch} at full width served in bf16 by "
+            f"ServeEngine(mesh=) on make_mesh_for_env's {a['mesh']} "
+            f"({a['backend']}), the families phase's {LM_REQUESTS} requests "
+            f"x {LM_MAX_TOKENS} tokens: {toks} tokens in {wall:.3f} s = "
+            f"{toks / wall:.1f} tokens/s, prefill {pre_ms:.3f} ms per wave, "
+            f"decode {dec_ms:.3f} ms per step (CUDA events), every token "
+            f"equal to the families phase's "
+            f"{'(asserted)' if asserted else '(not run)'}; parts (wall s, "
+            f"peak GiB) {a['fam'][arch]['parts']}  [{card}]")
+    for arch in FAM_ARCHS:
+        ref = a["fam"][arch]["logits"]
+        worst, clear, same, n_rows = 0.0, 0, 0, 0
+        for r, x in enumerate(ranks):
+            f = x["fam"][arch]
+            want = ref[:, f["row0"]:f["row0"] + f["logits"].shape[1]]
+            worst = max(worst, float((f["logits"] - want).abs().max()))
+            top2 = want.topk(2, dim=-1).values
+            ok = (top2[..., 0] - top2[..., 1]) > 2 * LMM_LOGIT_TOL
+            eq = f["logits"].argmax(-1) == want.argmax(-1)
+            assert bool(eq[ok].all()), f"{arch} rank {r}: greedy tokens differ"
+            clear += int(ok.sum())
+            same += int(eq.sum())
+            n_rows += int(eq.numel())
+        assert worst <= LMM_LOGIT_TOL, (
+            f"families_mesh (b) {arch}: prefill + decode {worst} from the "
+            "unmeshed run")
+        loss_a, mb_a = a["fam"][arch]["loss"]
+        loss_b, mb_b = ranks[0]["fam"][arch]["loss"]
+        assert all(x["fam"][arch]["loss"][0] == loss_b for x in ranks)
+        assert math.isfinite(loss_b) and math.isclose(
+            loss_b, loss_a, rel_tol=LMM_LOSS_TOL), (arch, loss_b, loss_a)
+        depth = ", ".join(f"{k} {v}" for k, v in fam_depth(
+            arch, opts).items()) or "smoke"
+        log(f"families_mesh (b): {arch} ({depth}, full width) on 4 gloo "
+            f"ranks, (data 2, model 2): f32 prefill of {LMM_B} x "
+            f"{LMM_PROMPT} tokens + {LMM_DECODE} decode steps, the cache's "
+            f"{'ssm' if arch == 'mamba2-2.7b' else 'k'} "
+            f"block {ranks[0]['fam'][arch]['lead']}: max |diff| from the "
+            f"unmeshed run {worst:.3g} (tol {LMM_LOGIT_TOL}), greedy tokens "
+            f"equal on {same} of {n_rows} rows ({clear} with a top-2 margin "
+            f"over {2 * LMM_LOGIT_TOL}, all equal); train step on "
+            f"{TRAIN_BATCH} x {FAM_MESH_SEQ} tokens ({mb_b} microbatches): "
+            f"loss {loss_b:.7f} against the unmeshed step's {loss_a:.7f} "
+            f"({mb_a} microbatches; rel tol {LMM_LOSS_TOL})  [{card}]")
+    for r, x in enumerate(ranks):
+        log(f"  gloo rank {r} families: " + "; ".join(
+            f"{arch} {x['fam'][arch]['parts']}" for arch in FAM_ARCHS))
+    launches = Counter(a["fam_launches"])
+    for x in ranks:
+        launches.update(x["fam_launches"])
+    assert all(n == 0 for n in launches.values()), (
+        f"GSON kernels launched on the families_mesh path: {dict(launches)}")
+    log(f"families_mesh path launches: {dict(launches)} (none of the GSON "
+        f"kernels, on any rank)")
+    dryrun_report(opts, card)
+    return {k: launches[k] for k in a["fam_launches"]}
+
+
+def dryrun_report(opts: dict, card: str) -> None:
+    """families_mesh (c): ``launch.dryrun``'s per-rank residency, step
+    FLOPs and roofline terms for the cells this script ran on one card
+    (the train phase's ``TRAIN_BATCH`` x 4096 step and the lm phase's
+    decode step at B = ``LM_BATCH``, f32 master), beside their measured
+    peaks and times, and the card's memory beside ``HBM_PER_CARD``."""
+    import torch
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import HBM_PER_CARD
+    from repro_torch.models.common import ShapeCfg
+    train_cfg = lmm_cfg(TRAIN_ARCH, opts)
+    lm_cfg = lmm_cfg(LM_ARCH, opts)
+    seq = 64 if opts.get("smoke") else 4096
+    if not opts.get("smoke"):
+        train_cfg = train_cfg.replace(n_layers=TRAIN_LAYERS)
+    cells = (
+        ("train", train_cfg, ShapeCfg("train_4k", seq, TRAIN_BATCH, "train"),
+         None, CARRIED.get("train_peak"), CARRIED.get("train_ms")),
+        ("lm decode", lm_cfg, ShapeCfg("decode", LM_MAX_LEN, LM_BATCH,
+                                       "decode"),
+         steps.DeployCfg(fsdp=False), CARRIED.get("lm_peak"), None))
+    for tag, cfg, shape, dep, peak, ms in cells:
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(cfg, shape.name, None,
+                              shapes={shape.name: shape}, dep=dep)
+        res = row["residency"]
+        parts = ", ".join(f"{k} {v / 2**30:.2f}" for k, v in res.items()
+                          if k != "total")
+        measured = (f"{peak / 2**30:.2f} GiB measured" if peak
+                    else "not run")
+        timing = ""
+        if ms:
+            step_ms = sum(ms) / len(ms)
+            timing = (f"; t_compute {row['t_compute'] * 1e3:.1f} ms, "
+                      f"t_memory {row['t_memory'] * 1e3:.1f} ms against "
+                      f"{step_ms:.1f} ms measured per step")
+        log(f"dryrun {tag}: {cfg.name} ({cfg.n_layers} layers), "
+            f"{shape.global_batch} x {shape.seq_len}, one card: residency "
+            f"{res['total'] / 2**30:.2f} GiB ({parts}) against the phase's "
+            f"peak {measured}; step FLOPs {row['step_flops']:.4g} "
+            f"(FlopCounterMode on meta, counted in "
+            f"{time.perf_counter() - t0:.1f} s){timing}; HBM_PER_CARD "
+            f"{HBM_PER_CARD} against the card's "
+            f"{torch.cuda.get_device_properties(0).total_memory if opts['device'] != 'cpu' else 'not measured'}"
+            f"  [{card}]")
 
 
 def profile_window(run):

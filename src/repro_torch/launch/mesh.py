@@ -18,8 +18,9 @@ of one rank is not built: a collective over it is the identity.
 that reads ``dict(zip(mesh.axis_names, mesh.devices.shape))`` reads a
 JAX mesh and an ``LMMesh`` alike.
 
-The JAX module's v5e constants (peak rates and memory of a TPU) are not
-carried: they are a TPU's, not the card's.
+The JAX module keeps a TPU v5e's peak rates and memory here; the port
+keeps the card's instead (``PEAK_FLOPS_BF16``, ``HBM_BW``, ``NVLINK_BW``,
+``HBM_PER_CARD``), read by ``launch/roofline.py`` and ``launch/dryrun.py``.
 """
 from __future__ import annotations
 
@@ -30,6 +31,19 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch.distributed as dist
+
+
+# NVIDIA H100 SXM5 80GB, the card the port runs on
+# (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``:
+# "NVIDIA H100 80GB HBM3, 700.00 W"). The rates are the NVIDIA H100 Tensor
+# Core GPU data sheet's for the SXM part at its 700 W limit; a card set
+# below it runs slower under load.
+PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s (no sparsity)
+HBM_BW = 3.35e12                # HBM3 bytes/s
+NVLINK_BW = 450e9               # NVLink 4 bytes/s per direction (900 GB/s both)
+# device memory as torch.cuda.get_device_properties(0).total_memory
+# reports it on that card
+HBM_PER_CARD = 85_017_493_504
 
 
 def axes_of(entry) -> tuple:

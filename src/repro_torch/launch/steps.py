@@ -9,9 +9,9 @@ says: each rank holds its blocks and gathers per layer what it reads):
   activations   batch over ('pod', 'data'); SP (seq over 'model') is
                 recorded and changes nothing
   KV caches     seq over 'model' (flash decode), batch over ('pod',
-                'data'); ``cache_specs`` also gives the specs of the other
-                families' leaves (ck, cv, ssm, hx, hb, hc), whose mesh
-                paths wait for ROADMAP A15f-2
+                'data'); the cross K/V on kv heads, the SSD state on heads
+                and the conv tail on channels over 'model'
+                (``cache_specs``)
   optimizer     moments inherit the param specs (match_opt_specs)
 
 ``DEPLOY`` is JAX's table of per-(arch, shape) deployments, entry for
@@ -20,8 +20,8 @@ entry. Each ``build_*`` returns the step and its abstract arguments
 blocks). The steps take the global batch (or token column) on every
 rank, as JAX's take global arrays, and the cache as this rank's block;
 they return this rank's blocks and rows. With ``mesh=None`` the same
-factories run on one device. ``lower_cell`` lowers through XLA and waits
-for the XLA tooling (ROADMAP A15g).
+factories run on one device. ``lower_cell`` gives the cell's dry-run row
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -330,6 +330,13 @@ def applicable(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
 
 
 def lower_cell(arch_cfg: ModelConfig, shape_name: str, mesh,
-               dep: DeployCfg | None = None, shapes: dict | None = None):
-    raise NotImplementedError(
-        "lowering a cell through XLA is not ported yet: ROADMAP A15g")
+               dep: DeployCfg | None = None, shapes: dict | None = None
+               ) -> dict:
+    """The cell's dry-run row (``launch.dryrun.run_cell``): JAX lowers
+    the cell through XLA here; the port has no compiler to ask, and
+    reads the cell's FLOPs, residency and collectives instead. ``mesh``:
+    an ``LMMesh`` (``dryrun.sized_mesh`` needs no process group) or None
+    for one device."""
+    from repro_torch.launch import dryrun
+    return dryrun.run_cell(arch_cfg, shape_name, mesh, shapes=shapes,
+                           dep=dep)

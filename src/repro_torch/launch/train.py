@@ -65,6 +65,9 @@ def world(device: str):
         return
     backend = "gloo" if device == "cpu" else "nccl"
     if device != "cpu":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--device {device}: no CUDA device (pass "
+                               "--device cpu to run on the CPU)")
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
         torch.cuda.set_device(device)
     with tempfile.TemporaryDirectory() as root:

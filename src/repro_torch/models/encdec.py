@@ -15,6 +15,16 @@ cross-attention K/V at ``encoder_ctx``, made once by ``prefill``.
 in place, at position ``length[0]`` (the lockstep invariant, as
 ``transformer.decode_step`` does), reads the whole cross cache, and
 returns a dict holding the same tensors and a new ``length``.
+
+**On a mesh** the encoder and the decoder run on the rank's rows, each
+layer gathering its leaves (``transformer``'s module docstring; the
+``frames`` are global and split like the tokens). The self-attention
+K/V is seq-sharded over ``model`` and decoded through
+``attention.flash_decode``; the cross cache ``ck``/``cv``,
+(L, B, Te, KV, Dh), is split on its kv heads over ``model``, and a rank
+attends with the query heads of its own kv heads and gathers the output
+over ``model``: exact, since heads are independent, and it moves
+(B, H, Dh) per layer instead of the cross cache.
 """
 from __future__ import annotations
 
@@ -22,10 +32,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
+from repro_torch.models import placement
 from repro_torch.models.common import (ModelConfig, ParamSet, rms_norm,
                                        rope_tables)
-from repro_torch.models.transformer import (_embed, _head, _layers, no_mesh,
-                                            qkv_rope, remat)
+from repro_torch.models.transformer import (_embed, _head, _layers, _norm,
+                                            _rows_place, _write, attend_cache,
+                                            decode_place, local, new_cache,
+                                            prefill_place, qkv_rope, remat,
+                                            seq_part, write_position)
 
 
 def encdec_param_set(cfg: ModelConfig) -> ParamSet:
@@ -71,7 +85,9 @@ def _positions(s: int, cfg: ModelConfig, device):
                        cfg.rope_theta)
 
 
-def _encoder_layer(lp, cfg, x, cs):
+def _encoder_layer(lp, cfg, x, cs, pl=None):
+    if pl is not None:
+        lp = pl.layer(lp, "enc")
     b, s, _ = x.shape
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = qkv_rope(lp, cfg, h, cs)
@@ -80,21 +96,29 @@ def _encoder_layer(lp, cfg, x, cs):
     return _mlp(lp, cfg, x)
 
 
-def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
-           mesh=None) -> torch.Tensor:
-    """frames: (B, Tenc, D) stub embeddings -> encoder states."""
-    no_mesh(mesh, "encdec")
+def _encode(params: dict, cfg: ModelConfig, frames: torch.Tensor, pl=None):
+    """The encoder over ``frames`` (this rank's rows on a mesh)."""
     x = frames.to(cfg.compute_dtype)
     cs = _positions(x.shape[1], cfg, x.device)
     layer = remat(_encoder_layer, cfg, params)
     for lp in _layers(params, cfg.compute_dtype, "enc"):
-        x = layer(lp, cfg, x, cs)
-    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+        x = layer(lp, cfg, x, cs, pl)
+    return rms_norm(x, _norm(params, "enc_final_norm", pl), cfg.norm_eps)
 
 
-def _decoder_layer(lp, cfg, x, cs, enc_out):
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+           mesh=None) -> torch.Tensor:
+    """frames: (B, Tenc, D) stub embeddings -> encoder states (on a mesh
+    this rank's rows)."""
+    pl = _rows_place(params, cfg, mesh, frames.shape[0])
+    return _encode(params, cfg, pl.rows(frames) if pl else frames, pl)
+
+
+def _decoder_layer(lp, cfg, x, cs, enc_out, pl=None):
     """One decoder layer over the full sequence. Returns (x, (k, v,
     cross k, cross v)): the last four are what the cache holds."""
+    if pl is not None:
+        lp = pl.layer(lp)
     b, s, _ = x.shape
     te = enc_out.shape[1]
     H, KV, Dh = cfg.n_heads, cfg.n_kv, cfg.d_head
@@ -116,16 +140,20 @@ def _decoder_layer(lp, cfg, x, cs, enc_out):
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             frames: torch.Tensor, mesh=None):
     """Teacher-forced decoder logits given stub audio frames. Returns
-    (logits (B,S,V), 0.0 aux)."""
-    enc_out = encode(params, cfg, frames, mesh)
-    x = _embed(params, cfg, tokens)
+    (logits (B,S,V), 0.0 aux); on a mesh the logits are this rank's
+    rows."""
+    pl = _rows_place(params, cfg, mesh, tokens.shape[0])
+    if pl is not None:
+        tokens, frames = pl.rows(tokens), pl.rows(frames)
+    enc_out = _encode(params, cfg, frames, pl)
+    x = _embed(params, cfg, tokens, pl)
     cs = _positions(x.shape[1], cfg, x.device)
     layer = remat(_decoder_layer, cfg, params)
     for lp in _layers(params, cfg.compute_dtype):
-        x = layer(lp, cfg, x, cs, enc_out)[0]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head(params, cfg), torch.zeros((), dtype=torch.float32,
-                                               device=x.device)
+        x = layer(lp, cfg, x, cs, enc_out, pl)[0]
+    x = rms_norm(x, _norm(params, "final_norm", pl), cfg.norm_eps)
+    return x @ _head(params, cfg, pl), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -149,52 +177,81 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             frames: torch.Tensor, max_len: int | None = None, mesh=None):
     """Encode the audio and run the decoder prompt teacher-forced,
     building the self-attention cache and the cross K/V cache. Returns
-    (cache, last_logits)."""
-    enc_out = encode(params, cfg, frames, mesh)
+    (cache, last_logits); on a mesh this rank's block of the cache and
+    its rows of the logits."""
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
-    cache = init_cache(cfg, b, max_len or s, device=x.device,
-                       enc_len=enc_out.shape[1])
+    pl = prefill_place(params, cfg, mesh, b)
+    if pl is not None:
+        tokens, frames = pl.rows(tokens), pl.rows(frames)
+    enc_out = _encode(params, cfg, frames, pl)
+    x = _embed(params, cfg, tokens, pl)
+    cache = new_cache(init_cache, cfg, b, max_len or s, mesh, x.device,
+                      enc_len=enc_out.shape[1])
+    seq = seq_part(cache, s)
+    n = seq.stop - seq.start
     cs = _positions(s, cfg, x.device)
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
-        x, (k, v, ck, cv) = _decoder_layer(lp, cfg, x, cs, enc_out)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-        cache["ck"][i] = ck
-        cache["cv"][i] = cv
-    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = (x @ _head(params, cfg))[:, 0]
+        x, (k, v, ck, cv) = _decoder_layer(lp, cfg, x, cs, enc_out, pl)
+        cache["k"][i, :, :n] = k[:, seq]
+        cache["v"][i, :, :n] = v[:, seq]
+        cache["ck"][i] = local(cache, "ck", ck)
+        cache["cv"][i] = local(cache, "cv", cv)
+    x = rms_norm(x[:, -1:], _norm(params, "final_norm", pl), cfg.norm_eps)
+    logits = (x @ _head(params, cfg, pl))[:, 0]
     cache["length"].fill_(s)
     return cache, logits
+
+
+def _cross_heads(cache, cfg: ModelConfig):
+    """(query heads, kv axes): the query heads that attend to this
+    rank's kv heads of the cross cache and the axes those are split
+    over (all heads and none without a mesh)."""
+    if not isinstance(cache, placement.Sharded):
+        return slice(0, cfg.n_heads), ()
+    kv = placement.block(cache.spec("ck"), cache.shapes["ck"],
+                         cache.mesh)[3]
+    g = cfg.n_heads // cfg.n_kv
+    return (slice(kv.start * g, kv.stop * g),
+            placement.axes_of(cache.spec("ck")[3]))
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 token: torch.Tensor, mesh=None):
     """One decode step. token: (B, 1) i32. Returns (cache, logits (B,V));
-    ``k`` and ``v`` are written in place (module docstring)."""
-    no_mesh(mesh, "encdec")
-    x = _embed(params, cfg, token)
+    ``k`` and ``v`` are written in place (module docstring). On a mesh
+    the cache is this rank's ``placement.Sharded`` block and ``token``
+    the whole column; the logits are this rank's rows."""
+    pl = decode_place(params, cfg, cache, mesh)
+    if pl is not None:
+        token = pl.rows(token)
+    x = _embed(params, cfg, token, pl)
     b = x.shape[0]
     length = cache["length"]
     length1 = length + 1
-    at = length[:1].clamp(max=cache["k"].shape[2] - 1).long()
+    at, valid, flash = write_position(cache, length, pl)
     cs = rope_tables(length[:, None], cfg.d_head, cfg.rope_theta)
-    H, Dh = cfg.n_heads, cfg.d_head
+    Dh = cfg.d_head
+    heads, kv_axes = _cross_heads(cache, cfg)
     te = cache["ck"].shape[2]
     full = torch.full((b,), te, dtype=torch.int32, device=x.device)
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
+        if pl is not None:
+            lp = pl.layer(lp)
         kc, vc = cache["k"][i], cache["v"][i]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = qkv_rope(lp, cfg, h, cs)
-        kc.index_copy_(1, at, k.to(kc.dtype))
-        vc.index_copy_(1, at, v.to(vc.dtype))
-        o = attn.decode_attention(q, kc, vc, length1)
+        _write(kc, at, k, valid)
+        _write(vc, at, v, valid)
+        o = attend_cache(q, kc, vc, length1, flash, mesh)
         x = x + o.reshape(b, 1, -1) @ lp["wo"].to(x.dtype)
         h = rms_norm(x, lp["ln_c"], cfg.norm_eps)
-        q = (h @ lp["wq_c"].to(x.dtype)).reshape(b, 1, H, Dh)
+        q = (h @ lp["wq_c"].to(x.dtype)).reshape(b, 1, -1, Dh)[:, :, heads]
         o = attn.decode_attention(q, cache["ck"][i], cache["cv"][i], full)
+        if kv_axes:
+            o = placement.gather(o, mesh, kv_axes, 2)
         x = x + o.reshape(b, 1, -1) @ lp["wo_c"].to(x.dtype)
         x = _mlp(lp, cfg, x)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ _head(params, cfg))[:, 0]
-    return dict(cache, length=length1), logits
+    x = rms_norm(x, _norm(params, "final_norm", pl), cfg.norm_eps)
+    logits = (x @ _head(params, cfg, pl))[:, 0]
+    out = dict(cache, length=length1)
+    return (cache.with_values(out) if pl is not None else out), logits

@@ -15,6 +15,15 @@ invocation's new key and value into the cache it is given, in place (the
 K/V at position ``length[0]``, the lockstep invariant, as
 ``transformer.decode_step`` does), and returns a dict holding the same
 tensors and a new ``length``.
+
+**On a mesh** the mamba layers run as ``ssm_lm``'s do (its module
+docstring); the shared block's ``shared/*`` leaves are gathered through
+the call's ``placement.Place`` where the block runs. Its K/V cache,
+(n_inv, B, S, KV, Dh), is seq-sharded over ``model`` as the
+transformer's: prefill writes the rank's seq slice, decode writes on the
+rank whose shard holds the clamped ``length[0]`` and attends through
+``attention.flash_decode`` (over one ``model`` shard that is
+``decode_attention``).
 """
 from __future__ import annotations
 
@@ -23,12 +32,15 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ModelConfig, ParamSet, cast_params,
                                        rms_norm, rope_tables)
-from repro_torch.models.ssm import (mamba_block, mamba_decode_step,
-                                    ssm_param_defs)
+from repro_torch.models.ssm import mamba_block, ssm_param_defs
+from repro_torch.models.ssm_lm import StatePart, decode_layer
 from repro_torch.models.ssm_lm import init_cache as ssm_init_cache
 from repro_torch.models.ssm_lm import write_layer
-from repro_torch.models.transformer import (_embed, _head, _layers, mlp,
-                                            no_mesh, qkv_rope, remat)
+from repro_torch.models.transformer import (_embed, _head, _layers, _norm,
+                                            _rows_place, _write, attend_cache,
+                                            decode_place, mlp, new_cache,
+                                            prefill_place, qkv_rope, remat,
+                                            seq_part, write_position)
 
 
 def n_shared_invocations(cfg: ModelConfig) -> int:
@@ -56,9 +68,12 @@ def hybrid_param_set(cfg: ModelConfig) -> ParamSet:
     return ps
 
 
-def _shared_params(params: dict, dtype) -> dict:
-    return cast_params({k[len("shared/"):]: v for k, v in params.items()
-                        if k.startswith("shared/")}, dtype)
+def _shared_params(params: dict, dtype, pl=None) -> dict:
+    """The shared block's leaves in ``dtype``; gathered whole on a
+    mesh (``pl``)."""
+    sp = cast_params({k[len("shared/"):]: v for k, v in params.items()
+                      if k.startswith("shared/")}, dtype)
+    return sp if pl is None else pl.layer(sp, "shared", stacked=False)
 
 
 def _is_attn(cfg: ModelConfig, i: int) -> bool:
@@ -80,28 +95,36 @@ def _shared_block(sp: dict, cfg: ModelConfig, x: torch.Tensor, cs):
     return _mlp(sp, cfg, x), k, v
 
 
-def _layer(lp, sp, cfg, x, cs, i: int):
+def _layer(lp, params, cfg, x, cs, i: int, pl=None):
+    """Mamba layer ``i`` and, after every ``hybrid_attn_every``-th, the
+    shared block; on a mesh both gather their leaves here (so remat
+    gathers again)."""
+    if pl is not None:
+        lp = pl.layer(lp)
     x, _ = mamba_block(lp, cfg, x)
     if _is_attn(cfg, i):
+        sp = _shared_params(params, cfg.compute_dtype, pl)
         x = _shared_block(sp, cfg, x, cs)[0]
     return x
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             img_embeds=None, mesh=None):
-    """Full-sequence forward. Returns (logits (B,S,V), 0.0 aux)."""
-    no_mesh(mesh, "hybrid")
-    x = _embed(params, cfg, tokens)
+    """Full-sequence forward. Returns (logits (B,S,V), 0.0 aux); on a
+    mesh the logits are this rank's rows."""
+    pl = _rows_place(params, cfg, mesh, tokens.shape[0])
+    if pl is not None:
+        tokens = pl.rows(tokens)
+    x = _embed(params, cfg, tokens, pl)
     s = x.shape[1]
     cs = rope_tables(torch.arange(s, device=x.device), cfg.d_head,
                      cfg.rope_theta)
-    sp = _shared_params(params, cfg.compute_dtype)
     layer = remat(_layer, cfg, params)
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
-        x = layer(lp, sp, cfg, x, cs, i)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head(params, cfg), torch.zeros((), dtype=torch.float32,
-                                               device=x.device)
+        x = layer(lp, params, cfg, x, cs, i, pl)
+    x = rms_norm(x, _norm(params, "final_norm", pl), cfg.norm_eps)
+    return x @ _head(params, cfg, pl), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -117,26 +140,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int | None = None, mesh=None):
     """Prompt pass: the SSD state per mamba layer and the K/V of each
-    shared-block invocation. Returns (cache, last_logits)."""
-    no_mesh(mesh, "hybrid")
+    shared-block invocation. Returns (cache, last_logits); on a mesh this
+    rank's block of the cache and its rows of the logits."""
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
-    cache = init_cache(cfg, b, max_len or s, device=x.device)
+    pl = prefill_place(params, cfg, mesh, b)
+    if pl is not None:
+        tokens = pl.rows(tokens)
+    x = _embed(params, cfg, tokens, pl)
+    cache = new_cache(init_cache, cfg, b, max_len or s, mesh, x.device)
+    seq = seq_part(cache, s)
+    n = seq.stop - seq.start
     cs = rope_tables(torch.arange(s, device=x.device), cfg.d_head,
                      cfg.rope_theta)
-    sp = _shared_params(params, cfg.compute_dtype)
     n_inv = n_shared_invocations(cfg)
     every = cfg.hybrid_attn_every
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
+        if pl is not None:
+            lp = pl.layer(lp)
         x, (st, hx, hb, hc) = mamba_block(lp, cfg, x)
         write_layer(cache, i, st, hx, hb, hc)
         if _is_attn(cfg, i):
+            sp = _shared_params(params, cfg.compute_dtype, pl)
             x, k, v = _shared_block(sp, cfg, x, cs)
             inv = min(i // every, n_inv - 1)
-            cache["k"][inv, :, :s] = k
-            cache["v"][inv, :, :s] = v
-    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = (x @ _head(params, cfg))[:, 0]
+            cache["k"][inv, :, :n] = k[:, seq]
+            cache["v"][inv, :, :n] = v[:, seq]
+    x = rms_norm(x[:, -1:], _norm(params, "final_norm", pl), cfg.norm_eps)
+    logits = (x @ _head(params, cfg, pl))[:, 0]
     cache["length"].fill_(s)
     return cache, logits
 
@@ -144,32 +174,38 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 token: torch.Tensor, mesh=None):
     """One decode step. token: (B, 1) i32. Returns (cache, logits (B,V));
-    the cache is updated in place (module docstring)."""
-    no_mesh(mesh, "hybrid")
-    x = _embed(params, cfg, token)
+    the cache is updated in place (module docstring). On a mesh the cache
+    is this rank's ``placement.Sharded`` block and ``token`` the whole
+    column; the logits are this rank's rows."""
+    pl = decode_place(params, cfg, cache, mesh)
+    part = None
+    if pl is not None:
+        token, part = pl.rows(token), StatePart.of(cache)
+    x = _embed(params, cfg, token, pl)
     b = x.shape[0]
     length = cache["length"]
     length1 = length + 1
-    # the lockstep write position; dynamic_update_slice clamps its start
-    at = length[:1].clamp(max=cache["k"].shape[2] - 1).long()
+    at, valid, flash = write_position(cache, length, pl)
     cs = rope_tables(length[:, None], cfg.d_head, cfg.rope_theta)
-    sp = _shared_params(params, cfg.compute_dtype)
+    sp = None
     every = cfg.hybrid_attn_every
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
-        x, (st, (hx, hb, hc)) = mamba_decode_step(
-            lp, cfg, x, cache["ssm"][i],
-            (cache["hx"][i], cache["hb"][i], cache["hc"][i]))
-        write_layer(cache, i, st, hx, hb, hc)
+        if pl is not None:
+            lp = pl.layer(lp)
+        x = decode_layer(lp, cfg, x, cache, i, part)
         if not _is_attn(cfg, i):
             continue
+        if sp is None:
+            sp = _shared_params(params, cfg.compute_dtype, pl)
         kc, vc = cache["k"][i // every], cache["v"][i // every]
         h = rms_norm(x, sp["ln1"], cfg.norm_eps)
         q, k, v = qkv_rope(sp, cfg, h, cs)
-        kc.index_copy_(1, at, k.to(kc.dtype))
-        vc.index_copy_(1, at, v.to(vc.dtype))
-        o = attn.decode_attention(q, kc, vc, length1)
+        _write(kc, at, k, valid)
+        _write(vc, at, v, valid)
+        o = attend_cache(q, kc, vc, length1, flash, mesh)
         x = x + o.reshape(b, 1, -1) @ sp["wo"].to(x.dtype)
         x = _mlp(sp, cfg, x)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ _head(params, cfg))[:, 0]
-    return dict(cache, length=length1), logits
+    x = rms_norm(x, _norm(params, "final_norm", pl), cfg.norm_eps)
+    logits = (x @ _head(params, cfg, pl))[:, 0]
+    out = dict(cache, length=length1)
+    return (cache.with_values(out) if pl is not None else out), logits

@@ -83,7 +83,13 @@ def _router(router_w: torch.Tensor, cfg: ModelConfig, x2: torch.Tensor):
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
-    counts = torch.bincount(experts.reshape(-1), minlength=e_pad).float()
+    # the assignments per expert (a sum of ones: exact in any order; unlike
+    # bincount it also runs on the meta device, for the dry run's count)
+    flat = experts.reshape(-1)
+    counts = torch.zeros(e_pad, dtype=torch.float32, device=x2.device
+                         ).scatter_add_(0, flat, torch.ones(
+                             flat.shape, dtype=torch.float32,
+                             device=x2.device))
     stats = (counts, probs.sum(dim=0), float(x2.shape[0]))
     return gates.to(x2.dtype), experts.to(torch.int32), stats
 

@@ -341,11 +341,13 @@ class Place:
         return gather_spec(self.params[name].to(dtype),
                            self.params.spec(name), self.mesh)
 
-    def layer(self, lp: dict, prefix: str = "layers") -> dict:
+    def layer(self, lp: dict, prefix: str = "layers",
+              stacked: bool = True) -> dict:
         """A layer's local slices (the dict ``_layers`` yields) gathered
-        by their specs."""
+        by their specs; ``stacked=False``: leaves with no layer axis (the
+        hybrid's shared block)."""
         out = {}
         for k, v in lp.items():
-            spec = self.params.spec(f"{prefix}/{k}")[1:]
+            spec = self.params.spec(f"{prefix}/{k}")[1 if stacked else 0:]
             out[k] = gather_spec(v, spec, self.mesh, self.keep.get(k, ()))
         return out

@@ -11,10 +11,10 @@
 It serves every family of the JAX package: ``dense``, ``vlm`` and
 ``moe`` (the MoE FFN on its dense reference path,
 ``repro_torch.models.moe``) through ``transformer``, ``ssm``
-(``ssm_lm``), ``hybrid`` and ``encdec``. ``dense``, ``vlm`` and ``moe``
-run on a mesh (an ``LMMesh``, with parameters and caches held as
-``repro_torch.models.placement`` says); the other families on a mesh
-raise ``NotImplementedError`` (ROADMAP A15f-2).
+(``ssm_lm``), ``hybrid`` and ``encdec``, each on one device or on a
+mesh (an ``LMMesh``, with parameters and caches held as
+``repro_torch.models.placement`` says; a mesh loss is this rank's share
+of the global loss, ``transformer.mesh_loss``).
 """
 from __future__ import annotations
 
@@ -126,12 +126,20 @@ def _dense_forward(params, cfg, batch, mesh=None):
                                batch.get("img_embeds"), mesh=mesh)
 
 
+def _logits_loss(params, cfg, logits, aux, labels, mesh):
+    """The token-mean cross entropy of ``logits`` (this rank's rows on a
+    mesh, whose loss is then its share of the global one)."""
+    if mesh is not None:
+        pl = transformer._rows_place(params, cfg, mesh, labels.shape[0])
+        return transformer.mesh_loss(logits, pl.rows(labels), aux, cfg, pl)
+    ce = cross_entropy_loss(logits, labels.clamp_min(0), labels >= 0)
+    return ce, {"ce": ce, "aux": aux}
+
+
 def _encdec_loss(params, cfg, batch, mesh=None):
     logits, aux = encdec.forward(params, cfg, batch["tokens"],
                                  batch["frames"], mesh=mesh)
-    labels = batch["labels"]
-    ce = cross_entropy_loss(logits, labels.clamp_min(0), labels >= 0)
-    return ce, {"ce": ce, "aux": aux}
+    return _logits_loss(params, cfg, logits, aux, batch["labels"], mesh)
 
 
 def _encdec_forward(params, cfg, batch, mesh=None):
@@ -142,9 +150,7 @@ def _encdec_forward(params, cfg, batch, mesh=None):
 def _simple_loss(fwd):
     def loss(params, cfg, batch, mesh=None):
         logits, aux = fwd(params, cfg, batch["tokens"], mesh=mesh)
-        labels = batch["labels"]
-        ce = cross_entropy_loss(logits, labels.clamp_min(0), labels >= 0)
-        return ce, {"ce": ce, "aux": aux}
+        return _logits_loss(params, cfg, logits, aux, batch["labels"], mesh)
     return loss
 
 

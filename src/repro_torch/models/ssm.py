@@ -165,29 +165,43 @@ def mamba_block(lp: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def mamba_decode_step(lp: dict, cfg: ModelConfig, x: torch.Tensor,
-                      state: torch.Tensor, conv_hist: tuple):
+                      state: torch.Tensor, conv_hist: tuple,
+                      heads: slice | None = None, join=None):
     """O(1) single-token step. x: (B,1,D); state: (B,H,P,N) f32;
     conv_hist: (hx, hb, hc) each (B, dc-1, C). Returns (out, (state,
-    (hx, hb, hc))), all new tensors."""
+    (hx, hb, hc))), all new tensors.
+
+    ``heads`` (a slice of the H heads; all by default): the heads whose
+    state this call holds and updates, ``state`` then (B, h, P, N) and
+    ``hx`` the conv tail of their channels (B, dc-1, h*P); ``join`` takes
+    the y of those heads, (B, h, P), to all heads' (a mesh's gather over
+    the heads' axis). Heads are independent up to the gated norm, so
+    this is the whole step's value."""
     b = x.shape[0]
-    h_, p_ = cfg.ssm_heads, cfg.ssm_headdim
+    p_ = cfg.ssm_headdim
+    hs = heads if heads is not None else slice(0, cfg.ssm_heads)
+    ch = slice(hs.start * p_, hs.stop * p_)
+    h_ = hs.stop - hs.start
     dt_ = x.dtype
     f32 = torch.float32
     z, xs, bm, cm, dt_raw = _project(lp, cfg, x)
     hx, hb, hc = conv_hist
-    xs, hx = causal_conv(xs, lp["conv_x"].to(dt_), hx)
+    xs, hx = causal_conv(xs[..., ch], lp["conv_x"][:, ch].to(dt_), hx)
     bm, hb = causal_conv(bm, lp["conv_B"].to(dt_), hb)
     cm, hc = causal_conv(cm, lp["conv_C"].to(dt_), hc)
     xs, bm, cm = silu(xs), silu(bm), silu(cm)
 
-    dt = softplus(dt_raw.float() + lp["dt_bias"].float())[:, 0]   # (B,H)
-    A = -torch.exp(lp["A_log"].float())
-    a = torch.exp(dt * A[None, :])                               # (B,H)
+    dt = softplus(dt_raw[..., hs].float()
+                  + lp["dt_bias"][hs].float())[:, 0]             # (B,h)
+    A = -torch.exp(lp["A_log"][hs].float())
+    a = torch.exp(dt * A[None, :])                               # (B,h)
     xv = xs[:, 0].reshape(b, h_, p_).to(f32) * dt[..., None]
     outer = torch.einsum("bhp,bn->bhpn", xv, bm[:, 0].to(f32))
     state = a[:, :, None, None] * state + outer
     y = torch.einsum("bn,bhpn->bhp", cm[:, 0].to(f32), state)
-    y = y.to(dt_) + lp["Dskip"].to(dt_)[None, :, None] \
+    y = y.to(dt_) + lp["Dskip"][hs].to(dt_)[None, :, None] \
         * xs[:, 0].reshape(b, h_, p_)
+    if join is not None:
+        y = join(y)
     out = _gated_out(lp, cfg, x, y.reshape(b, 1, -1), z)
     return out, (state, (hx, hb, hc))

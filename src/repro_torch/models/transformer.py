@@ -61,16 +61,6 @@ from repro_torch.models.common import (ModelConfig, ParamSet, apply_rope,
                                        rms_norm, rope_tables, silu)
 
 
-def no_mesh(mesh, family: str) -> None:
-    """The check of the families whose mesh paths wait: a mesh that is
-    not an ``LMMesh`` raises ``TypeError``, an ``LMMesh`` raises
-    ``NotImplementedError``."""
-    if placement.check_mesh(mesh) is not None:
-        raise NotImplementedError(
-            f"the {family} family on a mesh (its cache leaves sharded by "
-            "heads, channels or kv heads) is not ported yet: ROADMAP A15f-2")
-
-
 # ---------------------------------------------------------------------------
 # parameter tables
 # ---------------------------------------------------------------------------
@@ -333,6 +323,61 @@ def _write(c: torch.Tensor, at: torch.Tensor, new: torch.Tensor, valid):
     c.index_copy_(1, at, new)
 
 
+def decode_place(params, cfg: ModelConfig, cache, mesh):
+    """A mesh decode step's ``Place``: the rows of the cache's blocks
+    (``cache`` must be this rank's ``placement.Sharded`` block; a K/V
+    cache must be seq-sharded over ``model``, whose size must divide its
+    ``max_len``). None without a mesh."""
+    if placement.check_mesh(mesh) is None:
+        return None
+    if not isinstance(cache, placement.Sharded):
+        raise TypeError("on a mesh the cache is this rank's block: "
+                        "placement.shard_cache(...) or a mesh prefill")
+    if "k" in cache:
+        t_g = cache.shapes["k"][2]
+        if "model" in mesh.axis_names and (
+                t_g % mesh.size("model") or placement.axes_of(
+                    cache.spec("k")[2]) != ("model",)):
+            raise ValueError(
+                f"flash_decode shards the cache's {t_g} positions over "
+                f"the {mesh.size('model')} ranks of 'model': max_len "
+                "must be divisible by the model axis")
+    return place(params, cfg, mesh, placement.axes_of(
+        cache.spec("length")[0]))
+
+
+def write_position(cache, length: torch.Tensor, pl):
+    """(at, valid, flash): where this step's key and value go in this
+    rank's ``cache["k"]`` (a device index; ``valid`` None, or whether
+    this rank's seq shard holds the position) and whether attention runs
+    through ``flash_decode``. The position is the global row 0's
+    ``length`` (the lockstep invariant), clamped as
+    ``dynamic_update_slice`` clamps its start."""
+    t = cache["k"].shape[2]
+    if pl is None:
+        return length[:1].clamp(max=t - 1).long(), None, False
+    mesh = pl.mesh
+    # the global row 0's length (held by the rows' first block)
+    first = torch.full_like(length[:1], -1) if mesh.index(pl.bat) else \
+        length[:1]
+    at = placement.reduce(first, mesh, pl.bat, dist.ReduceOp.MAX
+                          ).clamp(max=cache.shapes["k"][2] - 1).long()
+    if "model" not in mesh.axis_names:
+        return at, None, False
+    # written by the rank whose seq shard holds the position
+    at = at - mesh.index("model") * t
+    valid = (at >= 0) & (at < t)
+    return at.clamp(0, t - 1), valid, True
+
+
+def attend_cache(q, kc, vc, length1, flash: bool, mesh):
+    """Decode attention against one layer's (possibly seq-sharded)
+    cache."""
+    if flash:
+        return attn.flash_decode(mesh, q, kc, vc, length1)
+    return attn.decode_attention(q, kc, vc, length1)
+
+
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 token: torch.Tensor, mesh=None) -> tuple[dict, torch.Tensor]:
     """One decode step. token: (B, 1) i32. Returns (cache, logits (B,V)).
@@ -342,43 +387,15 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     mesh the cache is this rank's ``placement.Sharded`` block and
     ``token`` the whole column; the logits are this rank's rows.
     """
-    pl, valid = None, None
-    if placement.check_mesh(mesh) is not None:
-        if not isinstance(cache, placement.Sharded):
-            raise TypeError("on a mesh the cache is this rank's block: "
-                            "placement.shard_cache(...) or a mesh prefill")
-        t_g = cache.shapes["k"][2]
-        if "model" in mesh.axis_names and (
-                t_g % mesh.size("model") or placement.axes_of(
-                    cache.spec("k")[2]) != ("model",)):
-            raise ValueError(
-                f"flash_decode shards the cache's {t_g} positions over "
-                f"the {mesh.size('model')} ranks of 'model': max_len "
-                "must be divisible by the model axis")
-        bat = placement.axes_of(cache.spec("k")[1])
-        pl = place(params, cfg, mesh, bat)
+    pl = decode_place(params, cfg, cache, mesh)
+    if pl is not None:
         token = pl.rows(token)
     ffn = make_ffn(cfg, mesh, pl.bat if pl else ())
     x = _embed(params, cfg, token, pl)                         # (B,1,D)
     b = x.shape[0]
     length = cache["length"]                                   # (B,)
     length1 = length + 1
-    t = cache["k"].shape[2]
-    use_flash = pl is not None and "model" in mesh.axis_names
-    if pl is None:
-        # the lockstep write position; dynamic_update_slice clamps its start
-        at = length[:1].clamp(max=t - 1).long()
-    else:
-        # the global row 0's length (held by the rows' first block)
-        first = torch.full_like(length[:1], -1) if mesh.index(pl.bat) else \
-            length[:1]
-        at = placement.reduce(first, mesh, pl.bat, dist.ReduceOp.MAX
-                              ).clamp(max=t_g - 1).long()
-        if use_flash:
-            # written by the rank whose seq shard holds the position
-            at = at - mesh.index("model") * t
-            valid = (at >= 0) & (at < t)
-            at = at.clamp(0, t - 1)
+    at, valid, flash = write_position(cache, length, pl)
     cs = rope_tables(length[:, None], cfg.d_head, cfg.rope_theta)
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
         if pl is not None:
@@ -388,10 +405,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         q, k, v = qkv_rope(lp, cfg, h, cs)
         _write(kc, at, k, valid)
         _write(vc, at, v, valid)
-        if use_flash:
-            o = attn.flash_decode(mesh, q, kc, vc, length1)
-        else:
-            o = attn.decode_attention(q, kc, vc, length1)
+        o = attend_cache(q, kc, vc, length1, flash, mesh)
         x = x + o.reshape(b, 1, -1) @ lp["wo"].to(x.dtype)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         y, _ = ffn(lp, h)
@@ -402,6 +416,36 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     return (cache.with_values(out) if pl is not None else out), logits
 
 
+def prefill_place(params, cfg: ModelConfig, mesh, b: int):
+    """A mesh prefill's ``Place``: rows split over the cache's batch axes
+    (``launch.steps.batch_axes_for``). None without a mesh."""
+    if placement.check_mesh(mesh) is None:
+        return None
+    from repro_torch.launch.steps import batch_axes_for
+    return place(params, cfg, mesh, batch_axes_for(mesh, b))
+
+
+def seq_part(cache, s: int) -> slice:
+    """The positions of an ``s``-token prompt that this rank's block of
+    ``cache["k"]`` holds (all of them without a mesh)."""
+    if not isinstance(cache, placement.Sharded):
+        return slice(0, s)
+    lo = placement.block(cache.spec("k"), cache.shapes["k"],
+                         cache.mesh)[2].start
+    return slice(min(lo, s), min(lo + cache["k"].shape[2], s))
+
+
+def local(cache, name: str, value: torch.Tensor) -> torch.Tensor:
+    """This rank's block of one layer's ``value`` of leaf ``name`` (the
+    rank's rows, the leaf's other dimensions whole), or ``value`` itself
+    when it already has the block's shape."""
+    if not isinstance(cache, placement.Sharded) or \
+            tuple(value.shape[1:]) == tuple(cache[name].shape[2:]):
+        return value
+    blk = placement.block(cache.spec(name), cache.shapes[name], cache.mesh)
+    return value[(slice(None),) + blk[2:]]
+
+
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int | None = None, mesh=None,
             img_embeds: torch.Tensor | None = None
@@ -409,11 +453,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Run the full prompt, build a new cache. Returns (cache,
     last_logits); on a mesh this rank's block of the cache
     (``launch.steps.cache_specs``) and its rows of the logits."""
-    pl = None
-    if placement.check_mesh(mesh) is not None:
-        from repro_torch.launch.steps import batch_axes_for
-        pl = place(params, cfg, mesh, batch_axes_for(mesh, tokens.shape[0]))
-        b_g = tokens.shape[0]
+    b_g = tokens.shape[0]
+    pl = prefill_place(params, cfg, mesh, b_g)
+    if pl is not None:
         tokens, img_embeds = pl.rows(tokens), pl.rows(img_embeds)
     ffn = make_ffn(cfg, mesh, pl.bat if pl else ())
     x = _prefix(params, cfg, tokens, img_embeds, pl)
@@ -422,12 +464,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if s > max_len:
         raise ValueError(f"a prompt of {s} positions does not fit a cache "
                          f"of {max_len}")
-    if pl is None:
-        cache, seq = init_cache(cfg, b, max_len, device=x.device), slice(0, s)
-    else:
-        cache = _mesh_cache(cfg, b_g, max_len, mesh, x.device)
-        lo = placement.block(cache.spec("k"), cache.shapes["k"], mesh)[2].start
-        seq = slice(min(lo, s), min(lo + cache["k"].shape[2], s))
+    cache = new_cache(init_cache, cfg, b_g, max_len, mesh, x.device)
+    seq = seq_part(cache, s)
+    n = seq.stop - seq.start
     cs = rope_tables(torch.arange(s, device=x.device), cfg.d_head,
                      cfg.rope_theta)
     for i, lp in enumerate(_layers(params, cfg.compute_dtype)):
@@ -440,7 +479,6 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         x2 = x + o.reshape(b, s, -1) @ lp["wo"].to(x.dtype)
         h2 = constrain(rms_norm(x2, lp["ln2"], cfg.norm_eps), "matmul_in")
         y, _ = ffn(lp, h2)
-        n = seq.stop - seq.start
         cache["k"][i, :, :n] = k[:, seq]
         cache["v"][i, :, :n] = v[:, seq]
         x = constrain(x2 + y)
@@ -450,17 +488,21 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return cache, logits
 
 
-def _mesh_cache(cfg: ModelConfig, b: int, max_len: int, mesh, device):
-    """This rank's zero block of a cache of ``b`` rows, held as
-    ``launch.steps.cache_specs`` says."""
+def new_cache(init, cfg: ModelConfig, b: int, max_len: int, mesh, device,
+              **kw):
+    """A zero cache of ``b`` rows from the family's ``init_cache``
+    (``init(cfg, b, max_len, device=, **kw)``): the whole cache without a
+    mesh, else this rank's block of it, held as ``launch.steps.
+    cache_specs`` says."""
+    if placement.check_mesh(mesh) is None:
+        return init(cfg, b, max_len, device=device, **kw)
     from repro_torch.launch.steps import cache_specs
-    shapes = {k: tuple(v.shape) for k, v in init_cache(
-        cfg, b, max_len, device="meta").items()}
+    shapes = init(cfg, b, max_len, device="meta", **kw)
     specs = cache_specs(cfg, shapes, mesh, b)
-    local = {}
-    for k, shp in shapes.items():
-        blk = placement.block(specs[k], shp, mesh)
-        local[k] = torch.zeros([sl.stop - sl.start for sl in blk],
-                               dtype=torch.int32 if k == "length"
-                               else cfg.compute_dtype, device=device)
-    return placement.Sharded(local, specs, shapes, mesh)
+    local_ = {}
+    for k, v in shapes.items():
+        blk = placement.block(specs[k], v.shape, mesh)
+        local_[k] = torch.zeros([sl.stop - sl.start for sl in blk],
+                                dtype=v.dtype, device=device)
+    return placement.Sharded(local_, specs, {k: v.shape for k, v in
+                                             shapes.items()}, mesh)

@@ -162,7 +162,7 @@ class ServeEngine:
         on a tie, as ``jnp.argmax``). Else Gumbel-max from ``rng``. On a
         mesh: the whole batch's tokens, from this rank's rows (collective
         over the cache's batch axes)."""
-        bat = (placement.axes_of(self.cache.spec("k")[1])
+        bat = (placement.axes_of(self.cache.spec("length")[0])
                if self.mesh is not None else ())
         if self.cfg.temperature <= 0.0:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -21,9 +21,11 @@
   drop set is JAX's; ``compressed_psum`` over ``pod = 4``, two rounds
   bitwise JAX's, with JAX's own asserts; ``shard_params`` then
   ``gather_params`` bitwise, each rank holding the total over the
-  spec's shard count; and the errors the mesh paths owe (a mesh larger
-  than the world, ``max_len`` the model axis does not divide, an A15f-2
-  family on a mesh, a mesh that is no ``LMMesh``).
+  spec's shard count; the errors the mesh paths owe (a mesh larger
+  than the world, ``max_len`` the model axis does not divide, a mesh
+  that is no ``LMMesh``); and the SSM family's forward on the mesh, its
+  rows within 1e-5 of the unmeshed forward (it raised until the
+  families' mesh paths were ported).
 """
 from __future__ import annotations
 
@@ -310,11 +312,17 @@ def _world(rank, jx):
     tok = torch.zeros((4, 1), dtype=torch.int32)
     out["err_max_len"] = _raises(
         lambda: dense.decode_step(params, cache, tok, mesh=mesh), ValueError)
+    # the SSM family runs on the mesh now: its forward's rows there
+    # against the same weights without a mesh
     ssm = registry.get_bundle(registry.smoke_config(get_config(
         "mamba2-2.7b")))
-    out["err_family"] = _raises(
-        lambda: ssm.forward({}, {"tokens": tok}, mesh=mesh),
-        NotImplementedError)
+    full = ssm.init(0, device="cpu")
+    toks = torch.arange(4 * 16, dtype=torch.int32).reshape(4, 16) % 200 + 2
+    got = ssm.forward(placement.shard_params(full, ssm.param_specs(rules),
+                                             mesh),
+                      {"tokens": toks}, mesh=mesh)[0]
+    want = ssm.forward(full, {"tokens": toks})[0][2 * d:2 * d + 2]
+    out["err_family"] = float((got - want).abs().max())
     out["err_type"] = _raises(
         lambda: transformer.forward(params, dense.cfg, tok, mesh=object()),
         TypeError)
@@ -396,8 +404,7 @@ def test_mesh_errors(world):
         assert "needs 8 ranks, found 4" in w["err_world"]
         assert w["err_max_len"].startswith("ValueError") and \
             "divisible by the model axis" in w["err_max_len"]
-        assert w["err_family"].startswith("NotImplementedError") and \
-            "A15f-2" in w["err_family"]
+        assert w["err_family"] <= 1e-5      # the SSM family on the mesh
         assert w["err_type"].startswith("TypeError") and \
             "LMMesh" in w["err_type"]
         assert w["err_plain"].startswith("TypeError") and \

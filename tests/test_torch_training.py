@@ -41,7 +41,7 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.data.tokens import TokenStream, synthetic_batch
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import LMMesh
-from repro_torch.models import registry, transformer
+from repro_torch.models import placement, registry, transformer
 from repro_torch.models import common as tcommon
 from repro_torch.models.common import SHAPES, ShapeCfg
 from repro_torch.training import optimizer as opt_lib
@@ -501,10 +501,12 @@ def test_build_train_step_on_one_device(setup):
 
 
 def test_what_waits_for_the_meshes_raises(setup):
-    """What still raises: a mesh that is no ``LMMesh`` (``TypeError``), the
-    pod-manual step without a mesh that has a pod axis, the SSM, hybrid
-    and enc-dec families on a mesh (ROADMAP A15f-2) and ``lower_cell``
-    (A15g). The step factories run without a mesh, as on one device."""
+    """What raises: a mesh that is no ``LMMesh`` (``TypeError``), the
+    pod-manual step without a mesh that has a pod axis. What runs since
+    the families' mesh paths and the dry run were ported: the SSM, hybrid
+    and enc-dec losses on a one-rank mesh, equal to their unmeshed
+    losses, and ``lower_cell``, which gives the cell's dry-run row. The
+    step factories run without a mesh, as on one device."""
     (_, _, _, cfg, tb, tp), _ = setup
     for kw in ({"compress_pods": True}, {"straggler_masking": True}):
         with pytest.raises(ValueError, match="pod"):
@@ -522,16 +524,23 @@ def test_what_waits_for_the_meshes_raises(setup):
         v.dtype == torch.float32 for v in ef.values())
     for arch in ("mamba2-2.7b", "zamba2-2.7b", "whisper-medium"):
         b = registry.get_bundle(registry.smoke_config(get_config(arch)))
-        with pytest.raises(NotImplementedError, match="A15f-2"):
-            b.loss({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-                        "labels": torch.zeros((1, 4), dtype=torch.int32),
-                        "frames": torch.zeros((1, b.cfg.encoder_ctx,
-                                               b.cfg.d_model))}, mesh=mesh)
+        full = b.init(0, device="cpu")
+        batch = {"tokens": torch.full((1, 4), 3, dtype=torch.int32),
+                 "labels": torch.full((1, 4), 5, dtype=torch.int32),
+                 "frames": torch.ones((1, b.cfg.encoder_ctx, b.cfg.d_model))}
+        got, _ = b.loss(placement.shard_params(
+            full, b.param_specs(tcommon.rules_for_mesh(mesh)), mesh), batch,
+            mesh=mesh)
+        want, _ = b.loss(full, batch)
+        assert torch.isfinite(got) and float(got) == pytest.approx(
+            float(want), rel=1e-6), arch
     assert steps.axis_sizes(None) == {} and steps.batch_axes_for(None, 4) == ()
     assert steps.cache_specs(cfg, {"length": (4,)}, mesh, 4) == {
         "length": (("data",),)}
-    with pytest.raises(NotImplementedError, match="A15g"):
-        steps.lower_cell(cfg, "train_4k", None)
+    row = steps.lower_cell(cfg, "train_4k", None,
+                           shapes={"train_4k": ShapeCfg("t", 32, 4, "train")})
+    assert row["status"] == "ok" and row["chips"] == 1 and \
+        row["step_flops"] > 0 and row["coll_bytes"] == 0
     with pytest.raises(TypeError, match="LMMesh"):
         transformer.forward(tp, cfg, torch.zeros((1, 2), dtype=torch.int32),
                             mesh=object())
