@@ -1,0 +1,87 @@
+"""The readings that the limits of ``gpubench/reference/compare.py`` are
+set from: the program's and the control's, seed by seed, in one process.
+
+    python3 -m gpubench.control --workload sphere4k.fleet64 \
+        --seeds 11,12,13 [--control-seeds 3] [--jobs 1]
+
+For each seed it runs ``--jobs`` jobs of the cell as a run's window does
+(the same driver, entry and sizes, capturing the same states), then
+judges them twice: the program's states against the float32 reference,
+and the control's, the reference with its distance product in TF32 put
+in the program's place from the same states, for the first
+``--control-seeds`` seeds. One JSON line per seed. The benchmark's own
+runs never run the control.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+from gpubench import catalog
+from gpubench.reference import compare
+from gpubench.run import ROOT, NoCard, import_program
+
+
+def readings(root, workload: str, seeds, control_seeds: int, jobs: int = 1,
+             device: str | None = None):
+    """Yields one dict per seed: the program's and the control's numbers."""
+    import torch
+    bench = catalog.Bench(root)
+    wl = bench.workload(workload)
+    cfg = bench.config(wl["config"])
+    traffic = bench.traffic(wl["traffic"])
+    if device is None:
+        if not torch.cuda.is_available():
+            raise NoCard("no CUDA device")
+        device = "cuda:0"
+    import_program(root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    Driver = catalog.driver(cfg["driver"])
+    for n, seed in enumerate(seeds):
+        drv = Driver(cfg, traffic, seed, device)
+        if n == 0:
+            drv.setup()
+        t0 = time.perf_counter()
+        for _ in range(jobs):
+            drv.window(0.0)
+        run_s = time.perf_counter() - t0
+        drv.free()
+        t0 = time.perf_counter()
+        prog = drv.check()
+        check_s = time.perf_counter() - t0
+        row = {"seed": seed, "program": dict(
+            (k, v) for k, v, _, _ in prog.numbers()),
+            "program_worst": prog.worst, "ties": prog.ties,
+            "compared": prog.compared, "trajectories": prog.trajectories,
+            "run_s": run_s, "check_s": check_s}
+        if n < control_seeds:
+            ctl = drv.check(control=compare.control_step(drv.params))
+            row["control"] = dict((k, v) for k, v, _, _ in ctl.numbers())
+            row["control_worst"] = ctl.worst
+            row["control_trajectories"] = ctl.trajectories
+        yield row
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", required=True)
+    ap.add_argument("--control-seeds", type=int, default=3)
+    ap.add_argument("--jobs", type=int, default=1)
+    args = ap.parse_args(argv)
+    seeds = [int(s) for s in args.seeds.split(",")]
+    try:
+        for row in readings(ROOT, args.workload, seeds, args.control_seeds,
+                            args.jobs):
+            print(json.dumps(row), flush=True)
+    except NoCard as e:
+        print(f"gpubench.control: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
