@@ -70,6 +70,7 @@ from repro_torch.core.gson.multi import (find_winners_reference,
                                          multi_signal_step)
 from repro_torch.core.gson.state import GSONParams, NetworkState
 from repro_torch.kernels.find_winners.kernel import LARGE
+from repro_torch.utils.timing import span
 
 _BIG_ID = torch.iinfo(torch.int32).max
 
@@ -455,7 +456,9 @@ def make_sharded_fleet_health(shard: FleetShard):
     def health(nets: NetworkState) -> torch.Tensor:
         ok, error = np.zeros((1, shard.per_rank)), None
         try:
-            ok = fleet_core.fleet_health(nets).cpu().numpy()[None]
+            ok = fleet_core.fleet_health(nets)
+            with span("gson.wait"):
+                ok = ok.cpu().numpy()[None]
         except Exception as e:                  # noqa: BLE001
             error = e
         return torch.from_numpy(shard.gather(ok, error)[0] > 0)

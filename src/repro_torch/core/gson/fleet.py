@@ -61,6 +61,7 @@ from repro_torch.core.gson.state import (FIELDS, NO_NBR, GSONParams,
                                          NetworkState, init_fleet)
 from repro_torch.core.gson.superstep import (SuperstepConfig,
                                              device_m_schedule)
+from repro_torch.utils.timing import span
 
 
 @dataclass
@@ -209,18 +210,20 @@ def fleet_iterate(
     nets = fstate.nets
     dev = nets.device
     M = cfg.max_parallel
-    sig, prio = [], []
-    idle_sig = idle_prio = None
-    for d, run in zip(draws, mask):
-        if run:
-            sig.append(d.signals(M).to(dev))
-            prio.append(d.lock_priorities(M).to(dev))
-            continue
-        if idle_sig is None:
-            idle_sig = torch.zeros((M, nets.dim), device=dev)
-            idle_prio = torch.zeros((M,), dtype=torch.int32, device=dev)
-        sig.append(idle_sig)
-        prio.append(idle_prio)
+    with span("gson.draws"):
+        sig, prio = [], []
+        idle_sig = idle_prio = None
+        for d, run in zip(draws, mask):
+            if run:
+                sig.append(d.signals(M).to(dev))
+                prio.append(d.lock_priorities(M).to(dev))
+                continue
+            if idle_sig is None:
+                idle_sig = torch.zeros((M, nets.dim), device=dev)
+                idle_prio = torch.zeros((M,), dtype=torch.int32, device=dev)
+            sig.append(idle_sig)
+            prio.append(idle_prio)
+        sig, prio = stack(sig), stack(prio)
     m_t = device_m_schedule(nets.n_active, cfg)
     smask = torch.arange(M, device=dev) < m_t[:, None]
     if not mask.all():
@@ -228,7 +231,7 @@ def fleet_iterate(
     if getattr(find_winners, "stateful", False) and fw_aux is None:
         fw_aux = find_winners.build(nets.w, nets.active)
     nets = multi_signal_step(
-        nets, stack(sig), params, stack(prio), refresh_states=False,
+        nets, sig, params, prio, refresh_states=False,
         find_winners=find_winners, signal_mask=smask,
         update_phase=update_phase, fw_aux=fw_aux)
     if params.model == "soam":
@@ -291,11 +294,13 @@ def fleet_check(fstate: FleetState, probes: torch.Tensor, mask: np.ndarray,
     batch in one sync."""
     mode = cfg.convergence or ("topology" if params.model == "soam"
                                else "qe")
-    nets, done, qe = convergence_check(
-        fstate.nets, probes, params=params, mode=mode,
-        qe_threshold=cfg.qe_threshold, mask=mask)
-    host = torch.stack([done.to(torch.float64),
-                        qe.to(torch.float64)]).cpu().numpy()
+    with span("gson.check"):
+        nets, done, qe = convergence_check(
+            fstate.nets, probes, params=params, mode=mode,
+            qe_threshold=cfg.qe_threshold, mask=mask)
+        flags = torch.stack([done.to(torch.float64), qe.to(torch.float64)])
+        with span("gson.wait"):
+            host = flags.cpu().numpy()
     return fstate.replace(
         nets=nets,
         converged=np.where(mask, host[0] > 0, fstate.converged),

@@ -35,6 +35,7 @@ from repro_torch.core.gson import topology as topo
 from repro_torch.core.gson.batch import add, batchable, put, take
 from repro_torch.core.gson.state import (DISK, SINGULAR, GSONParams,
                                          NetworkState)
+from repro_torch.utils.timing import span
 
 BIG32 = 2 ** 31 - 1
 
@@ -122,25 +123,27 @@ def refresh_topology(state: NetworkState,
     """Recompute the SOAM state ladder + adapt per-unit insertion
     thresholds toward the local feature size (tighten while stuck
     non-disk, relax once locally stable)."""
-    topo_state = topo.compute_topo_states(
-        state.nbr, state.active, state.firing, params.firing_threshold)
-    habituated = state.firing < params.firing_threshold
-    stable = (topo_state >= DISK) & (topo_state != SINGULAR)
-    stuck = state.active & habituated & ~stable
-    inconsistent = torch.where(stuck, state.inconsistent_for + 1, 0)
-    tighten = inconsistent >= params.stuck_window
-    thr_min = params.insertion_threshold * params.thr_min_frac
-    threshold = torch.where(
-        tighten, (state.threshold * params.thr_decay).clamp(min=thr_min),
-        state.threshold)
-    inconsistent = torch.where(tighten, 0, inconsistent)
-    threshold = torch.where(
-        state.active & stable,
-        (threshold * params.thr_recover).clamp(
-            max=params.insertion_threshold),
-        threshold)
-    return state.replace(topo_state=topo_state, threshold=threshold,
-                         inconsistent_for=inconsistent)
+    with span("gson.refresh"):
+        topo_state = topo.compute_topo_states(
+            state.nbr, state.active, state.firing, params.firing_threshold)
+        habituated = state.firing < params.firing_threshold
+        stable = (topo_state >= DISK) & (topo_state != SINGULAR)
+        stuck = state.active & habituated & ~stable
+        inconsistent = torch.where(stuck, state.inconsistent_for + 1, 0)
+        tighten = inconsistent >= params.stuck_window
+        thr_min = params.insertion_threshold * params.thr_min_frac
+        threshold = torch.where(
+            tighten,
+            (state.threshold * params.thr_decay).clamp(min=thr_min),
+            state.threshold)
+        inconsistent = torch.where(tighten, 0, inconsistent)
+        threshold = torch.where(
+            state.active & stable,
+            (threshold * params.thr_recover).clamp(
+                max=params.insertion_threshold),
+            threshold)
+        return state.replace(topo_state=topo_state, threshold=threshold,
+                             inconsistent_for=inconsistent)
 
 
 @batchable(3)
@@ -324,135 +327,139 @@ def multi_signal_step(
     is_soam = params.model == "soam"
 
     # ---- 1. Find Winners ---------------------------------------------------
-    if fw_aux is not None:
-        wid, sid, d2b, _ = find_winners(signals, state.w, state.active,
-                                        aux=fw_aux)
-    else:
-        wid, sid, d2b, _ = find_winners(signals, state.w, state.active)
+    with span("gson.find_winners"):
+        if fw_aux is not None:
+            wid, sid, d2b, _ = find_winners(signals, state.w, state.active,
+                                            aux=fw_aux)
+        else:
+            wid, sid, d2b, _ = find_winners(signals, state.w, state.active)
 
     # ---- 2-3e. dense Update phase (pluggable backend) ----------------------
-    up = update_phase(state, signals, wid, sid, d2b, prio, params,
-                      signal_mask)
-    selected, adapt, ins = up.selected, up.adapt, up.ins
-    w, firing, error, age = up.w, up.firing, up.error, up.age
-    n_sel = selected.sum(dim=-1, dtype=torch.int32)
-    nbr = state.nbr
+    with span("gson.update"):
+        up = update_phase(state, signals, wid, sid, d2b, prio, params,
+                          signal_mask)
+        selected, adapt, ins = up.selected, up.adapt, up.ins
+        w, firing, error, age = up.w, up.firing, up.error, up.age
+        n_sel = selected.sum(dim=-1, dtype=torch.int32)
+        nbr = state.nbr
 
     # ---- 3f. GWR/SOAM unit insertion ---------------------------------------
-    active = state.active
-    threshold = state.threshold
-    topo_state = state.topo_state
-    inconsistent = state.inconsistent_for
-    n_active = state.n_active
-    dropped_units = state.dropped_units
+    with span("gson.tail"):
+        active = state.active
+        threshold = state.threshold
+        topo_state = state.topo_state
+        inconsistent = state.inconsistent_for
+        n_active = state.n_active
+        dropped_units = state.dropped_units
 
-    # inactive first
-    free_order = torch.argsort(active.to(torch.int32), dim=-1,
-                               stable=True).to(torch.int32)
-    n_free = (C - n_active)[:, None]
-    wc = wid.clamp(0, C - 1).long()
+        # inactive first
+        free_order = torch.argsort(active.to(torch.int32), dim=-1,
+                                   stable=True).to(torch.int32)
+        n_free = (C - n_active)[:, None]
+        wc = wid.clamp(0, C - 1).long()
 
-    def take_free(fits, rank):
-        slot = torch.gather(free_order, -1, rank.clamp(0, C - 1).long())
-        return torch.where(fits, slot, C)
+        def take_free(fits, rank):
+            slot = torch.gather(free_order, -1, rank.clamp(0, C - 1).long())
+            return torch.where(fits, slot, C)
 
-    if not is_gng:
-        rank = torch.cumsum(ins.to(torch.int32), -1, dtype=torch.int32) - 1
-        fits = ins & (rank < n_free)
-        dropped_units = dropped_units + (ins & ~fits).sum(
-            dim=-1, dtype=torch.int32)
-        new_id = take_free(fits, rank)
-        nid = (new_id.long(),)
-        w_new = 0.5 * (take(w, wc) + signals)
-        w = put(w, nid, w_new)
-        active = put(active, nid, True)
-        firing = put(firing, nid, 1.0)
-        error = put(error, nid, 0.0)
-        threshold = put(threshold, nid, take(threshold, wc))
-        topo_state = put(topo_state, nid, 0)
-        inconsistent = put(inconsistent, nid, 0)
-        n_active = n_active + fits.sum(dim=-1, dtype=torch.int32)
+        if not is_gng:
+            rank = torch.cumsum(ins.to(torch.int32), -1,
+                                dtype=torch.int32) - 1
+            fits = ins & (rank < n_free)
+            dropped_units = dropped_units + (ins & ~fits).sum(
+                dim=-1, dtype=torch.int32)
+            new_id = take_free(fits, rank)
+            nid = (new_id.long(),)
+            w_new = 0.5 * (take(w, wc) + signals)
+            w = put(w, nid, w_new)
+            active = put(active, nid, True)
+            firing = put(firing, nid, 1.0)
+            error = put(error, nid, 0.0)
+            threshold = put(threshold, nid, take(threshold, wc))
+            topo_state = put(topo_state, nid, 0)
+            inconsistent = put(inconsistent, nid, 0)
+            n_active = n_active + fits.sum(dim=-1, dtype=torch.int32)
 
-        # edges: (new, b) and (new, s); drop (b, s)
-        e_a = torch.cat([new_id, new_id], dim=-1)
-        e_b = torch.cat([wid, sid], dim=-1)
-        e_m = torch.cat([fits, fits], dim=-1)
-        nbr, age, d1 = topo.insert_edges(nbr, age, e_a, e_b, e_m)
-        nbr, age = topo.remove_edge_pairs(nbr, age, wid, sid, fits)
-        # refresh/insert (b, s) for adapting signals
-        nbr, age, d2_ = topo.insert_edges(nbr, age, wid, sid, adapt)
-        dropped_edges = state.dropped_edges + d1 + d2_
-    else:
-        nbr, age, d2_ = topo.insert_edges(nbr, age, wid, sid, selected)
-        dropped_edges = state.dropped_edges + d2_
+            # edges: (new, b) and (new, s); drop (b, s)
+            e_a = torch.cat([new_id, new_id], dim=-1)
+            e_b = torch.cat([wid, sid], dim=-1)
+            e_m = torch.cat([fits, fits], dim=-1)
+            nbr, age, d1 = topo.insert_edges(nbr, age, e_a, e_b, e_m)
+            nbr, age = topo.remove_edge_pairs(nbr, age, wid, sid, fits)
+            # refresh/insert (b, s) for adapting signals
+            nbr, age, d2_ = topo.insert_edges(nbr, age, wid, sid, adapt)
+            dropped_edges = state.dropped_edges + d1 + d2_
+        else:
+            nbr, age, d2_ = topo.insert_edges(nbr, age, wid, sid, selected)
+            dropped_edges = state.dropped_edges + d2_
 
-    # ---- 3g. GNG periodic insertion at max-error units ---------------------
-    eff_old = state.signal_count - state.discarded
-    eff_new = eff_old + n_sel
-    if is_gng:
-        k_cap = 8  # static cap on inserts per iteration
-        lam = params.gng_lambda
-        n_ins = ((eff_new // lam) - (eff_old // lam)).clamp(0, k_cap)
-        err_masked = torch.where(active, error, -torch.inf)
-        # lax.top_k order: descending, ties to the lower index
-        q_ids = torch.sort(err_masked, dim=-1, descending=True,
-                           stable=True).indices[:, :k_cap]
-        take_q = (torch.arange(k_cap, device=dev) < n_ins[:, None])
-        # worst neighbor f of each q
-        q_nb = take(nbr, q_ids)                               # (B, k, K)
-        q_nb_err = torch.where(q_nb >= 0,
-                               take(error, q_nb.clamp(0, C - 1).long()),
-                               -torch.inf)
-        f_slot = q_nb_err.argmax(dim=-1)
-        f_ids = torch.gather(q_nb, -1, f_slot[..., None])[..., 0]
-        take_q = take_q & (f_ids >= 0)
-        rank = torch.cumsum(take_q.to(torch.int32), -1,
-                            dtype=torch.int32) - 1
-        fits = take_q & (rank < n_free)
-        dropped_units = dropped_units + (take_q & ~fits).sum(
-            dim=-1, dtype=torch.int32)
-        new_id = take_free(fits, rank)
-        nid = (new_id.long(),)
-        f_safe = f_ids.clamp(0, C - 1).long()
-        w_new = 0.5 * (take(w, q_ids) + take(w, f_safe))
-        w = put(w, nid, w_new)
-        active = put(active, nid, True)
-        firing = put(firing, nid, 1.0)
-        n_active = n_active + fits.sum(dim=-1, dtype=torch.int32)
-        # error redistribution: one multiplication per hit, in order
-        units = torch.arange(C, device=dev)
-        for ids in (q_ids, f_ids.long()):
-            for j in range(k_cap):
-                hit = fits[:, j:j + 1] & (units == ids[:, j:j + 1])
-                error = torch.where(hit, error * params.gng_alpha, error)
-        error = put(error, nid, params.gng_alpha * take(error, q_ids))
-        q32 = q_ids.to(torch.int32)
-        e_a = torch.cat([new_id, new_id], dim=-1)
-        e_b = torch.cat([q32, f_ids], dim=-1)
-        e_m = torch.cat([fits, fits], dim=-1)
-        nbr, age, d3 = topo.insert_edges(nbr, age, e_a, e_b, e_m)
-        nbr, age = topo.remove_edge_pairs(nbr, age, q32, f_ids, fits)
-        dropped_edges = dropped_edges + d3
-        # global error decay, once per effective signal
-        decay = torch.full((), 1.0 - params.gng_beta, dtype=torch.float32,
-                           device=dev)
-        error = error * torch.pow(decay, n_sel.to(torch.float32))[:, None]
+        # ---- 3g. GNG periodic insertion at max-error units -----------------
+        eff_old = state.signal_count - state.discarded
+        eff_new = eff_old + n_sel
+        if is_gng:
+            k_cap = 8  # static cap on inserts per iteration
+            lam = params.gng_lambda
+            n_ins = ((eff_new // lam) - (eff_old // lam)).clamp(0, k_cap)
+            err_masked = torch.where(active, error, -torch.inf)
+            # lax.top_k order: descending, ties to the lower index
+            q_ids = torch.sort(err_masked, dim=-1, descending=True,
+                               stable=True).indices[:, :k_cap]
+            take_q = (torch.arange(k_cap, device=dev) < n_ins[:, None])
+            # worst neighbor f of each q
+            q_nb = take(nbr, q_ids)                               # (B, k, K)
+            q_nb_err = torch.where(q_nb >= 0,
+                                   take(error, q_nb.clamp(0, C - 1).long()),
+                                   -torch.inf)
+            f_slot = q_nb_err.argmax(dim=-1)
+            f_ids = torch.gather(q_nb, -1, f_slot[..., None])[..., 0]
+            take_q = take_q & (f_ids >= 0)
+            rank = torch.cumsum(take_q.to(torch.int32), -1,
+                                dtype=torch.int32) - 1
+            fits = take_q & (rank < n_free)
+            dropped_units = dropped_units + (take_q & ~fits).sum(
+                dim=-1, dtype=torch.int32)
+            new_id = take_free(fits, rank)
+            nid = (new_id.long(),)
+            f_safe = f_ids.clamp(0, C - 1).long()
+            w_new = 0.5 * (take(w, q_ids) + take(w, f_safe))
+            w = put(w, nid, w_new)
+            active = put(active, nid, True)
+            firing = put(firing, nid, 1.0)
+            n_active = n_active + fits.sum(dim=-1, dtype=torch.int32)
+            # error redistribution: one multiplication per hit, in order
+            units = torch.arange(C, device=dev)
+            for ids in (q_ids, f_ids.long()):
+                for j in range(k_cap):
+                    hit = fits[:, j:j + 1] & (units == ids[:, j:j + 1])
+                    error = torch.where(hit, error * params.gng_alpha, error)
+            error = put(error, nid, params.gng_alpha * take(error, q_ids))
+            q32 = q_ids.to(torch.int32)
+            e_a = torch.cat([new_id, new_id], dim=-1)
+            e_b = torch.cat([q32, f_ids], dim=-1)
+            e_m = torch.cat([fits, fits], dim=-1)
+            nbr, age, d3 = topo.insert_edges(nbr, age, e_a, e_b, e_m)
+            nbr, age = topo.remove_edge_pairs(nbr, age, q32, f_ids, fits)
+            dropped_edges = dropped_edges + d3
+            # global error decay, once per effective signal
+            decay = torch.full((), 1.0 - params.gng_beta, dtype=torch.float32,
+                               device=dev)
+            error = error * torch.pow(decay, n_sel.to(torch.float32))[:, None]
 
-    # ---- 3h. expiry + pruning ----------------------------------------------
-    nbr, age, _ = topo.expire_edges(nbr, age, params.age_max)
-    active, _ = topo.prune_isolated(active, nbr, firing)
-    n_active = active.sum(dim=-1, dtype=torch.int32)
-    nbr = torch.where(active[..., None], nbr, -1)
-    nbr, age = topo.drop_edges_to_inactive(nbr, age, active)
+        # ---- 3h. expiry + pruning ------------------------------------------
+        nbr, age, _ = topo.expire_edges(nbr, age, params.age_max)
+        active, _ = topo.prune_isolated(active, nbr, firing)
+        n_active = active.sum(dim=-1, dtype=torch.int32)
+        nbr = torch.where(active[..., None], nbr, -1)
+        nbr, age = topo.drop_edges_to_inactive(nbr, age, active)
 
-    out = state.replace(
-        w=w, active=active, nbr=nbr, age=age, error=error, firing=firing,
-        threshold=threshold, topo_state=topo_state,
-        inconsistent_for=inconsistent, n_active=n_active,
-        signal_count=state.signal_count + m_eff,
-        discarded=state.discarded + (m_eff - n_sel),
-        dropped_edges=dropped_edges, dropped_units=dropped_units,
-    )
+        out = state.replace(
+            w=w, active=active, nbr=nbr, age=age, error=error, firing=firing,
+            threshold=threshold, topo_state=topo_state,
+            inconsistent_for=inconsistent, n_active=n_active,
+            signal_count=state.signal_count + m_eff,
+            discarded=state.discarded + (m_eff - n_sel),
+            dropped_edges=dropped_edges, dropped_units=dropped_units,
+        )
     # ---- 3i. SOAM: topology states + adaptive insertion threshold ----------
     if is_soam and refresh_states:
         out = refresh_topology(out, params)

@@ -72,6 +72,7 @@ from repro_torch.core.gson import metrics
 from repro_torch.gson.spec import MeshSpec, RunSpec, resolve
 from repro_torch.gson.variants import convergence_mode
 from repro_torch.rng import TorchDraws
+from repro_torch.utils.timing import span
 
 HistoryCallback = Callable[[dict], None]
 
@@ -323,14 +324,18 @@ class Cohort:
         fs = self.fstate
         if self.shard is None:
             counts = torch.stack([fs.nets.n_active, fs.nets.signal_count])
-            self.units, self.signals = counts.cpu().numpy().astype(np.int64)
+            with span("gson.wait"):
+                counts = counts.cpu()
+            self.units, self.signals = counts.numpy().astype(np.int64)
             self.iterations, self.converged, self.qe = (
                 fs.iteration, fs.converged, fs.qe)
             return
         if error is None:
             counts = torch.stack([fs.nets.n_active, fs.nets.signal_count])
+            with span("gson.wait"):
+                counts = counts.cpu()
             local = np.stack([fs.iteration, fs.converged, fs.qe,
-                              *counts.cpu().numpy()])
+                              *counts.numpy()])
         else:
             local = np.zeros((5, self.shard.per_rank))
         full = self.shard.gather(local, error)
@@ -355,7 +360,10 @@ class Cohort:
         record lands in ``self.faults``. Under a mesh each rank screens
         its own networks and the verdicts are gathered (collective).
         """
-        healthy = self._health(self.fstate.nets).cpu().numpy()[:self.batch]
+        with span("gson.screen"):
+            ok = self._health(self.fstate.nets)
+            with span("gson.wait"):
+                healthy = ok.cpu().numpy()[:self.batch]
         bad = ~healthy & ~self.quarantined
         if not bad.any():
             return
@@ -378,8 +386,14 @@ class Cohort:
         iteration, and "scan" strategies one chunk of single signals,
         plus the cadenced convergence check. Returns ``(steps,
         checked)`` — per-network iterations executed and which networks
-        have a fresh history row.
+        have a fresh history row. With tracing on, the tick is the span
+        ``gson.tick`` (``repro_torch.utils.timing``), numbered by the
+        cohort's ticks.
         """
+        with span("gson.tick", tick=self._ticks):
+            return self._tick(budget)
+
+    def _tick(self, budget: np.ndarray):
         B = self.batch
         device_mode = self.strategy.fleet_mode == "device"
         act = self.active() & (budget > 0)

@@ -413,13 +413,23 @@ def test_synthetic_batch_matches_input_specs(arch):
 
 
 def test_timing_and_tree_helpers():
-    from repro_torch.utils import Timer, timed
-    timer = Timer()
-    for _ in range(3):
-        with timer("a"):
-            pass
-    assert timer.counts == {"a": 3} and timer.mean("a") >= 0
-    assert "a" in timer.summary()
+    from repro_torch.utils import span, summary, timed, tracing
+    from repro_torch.utils.timing import clear, spans
+    clear()
+    with tracing(True):
+        for _ in range(3):
+            with span("a"):
+                with span("b"):
+                    pass
+    with span("a"):                      # off again: not recorded
+        pass
+    log, text = spans(), summary()
+    clear()
+    assert [x[0] for x in log] == ["b", "a"] * 3
+    assert [x[3] for x in log] == [1, 0] * 3
+    rows = {r.split()[0]: r.split() for r in text.splitlines()[1:]}
+    assert set(rows) == {"a", "b"} and rows["a"][-1] == "3"
+    assert 0 <= float(rows["a"][2]) <= float(rows["a"][1])
     out, sec = timed(lambda x: {"y": [x * 2]}, torch.ones(3), n=2)
     assert torch.equal(out["y"][0], torch.full((3,), 2.0)) and sec >= 0
     tree = {"a": torch.zeros(2, 3), "b": [torch.zeros(4, dtype=torch.bfloat16),
