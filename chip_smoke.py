@@ -28,7 +28,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
    bitwise against its plain version, its two scan regimes bitwise
    equal, and B1 held, timed and bounded at m = 1 (the ``single``
    path) and on a dense pool (``DENSE_ACTIVE`` of ``DENSE_C`` units
-   active, ``DENSE_M`` signals).
+   active, ``DENSE_M`` signals). Last (``refresh``), the SOAM refresh's
+   ladder kernel at both benchmark cells' shapes (``REFRESH_CELLS``:
+   B = 64 at C = 4096, B = 32 at the paper's C = 32768; K = 16) on fleets
+   grown by the card for ``REFRESH_ITERS`` iterations, bitwise its plain
+   version (also with every unit habituated): device ms of both, the
+   bound, device launches per call and the device memory one call
+   allocates. The main path, the fleet and the paper's configuration each
+   check that the kernel launches once per SOAM refresh (the program's
+   ``gson.refresh`` spans).
 4. main path — ``Session(RunSpec())`` (variant ``multi``) and
    ``variant="multi-fused"`` at the full default geometry through the
    ``cuda-full`` backend, with every launch counter set to 0 before and
@@ -310,6 +318,9 @@ GATE = dict(capacity=768, iterations=1500, jax_chi=2, jax_units=94,
             jax_qe=0.02538)
 # B1 on a dense pool: a converged network at the paper's capacity
 DENSE_C, DENSE_ACTIVE, DENSE_M = 32768, 16384, 8192
+# the refresh phase: the benchmark cells' fleets, grown this many iterations
+REFRESH_CELLS = (("sphere4k.fleet64", 64), ("paper.fleet32", 32))
+REFRESH_ITERS = 64
 
 # The device kernels that one call of each wrapper launches, by their
 # names in the CUDA sources; the profile phase sums the port's kernels
@@ -318,7 +329,10 @@ DEVICE_KERNELS = {
     "find_winners": ("fw_compact_kernel", "fw_scan_kernel"),
     "winner_lock": ("lock_tile_kernel",),
     "update_accum": ("owner_scatter_kernel", "accum_group_kernel"),
+    "topo_states": ("topo_ladder_kernel", "topo_patch_kernel"),
 }
+# Launched once per SOAM refresh, not once per iteration.
+PER_REFRESH = ("topo_states",)
 # Edge aging (B4) runs inside the accumulators' launch: its entry of the
 # kernels line reports that launch.
 SHARED = {"edge_age": "update_accum"}
@@ -452,6 +466,71 @@ def phase_kernels():
     results = hold_kernels(state, params, "kernels")
     results["find_winners"]["shapes"] = hold_find_winners_shapes(state)
     return results
+
+
+def phase_refresh() -> dict:
+    """The ladder kernel at both benchmark cells' shapes on fleets grown by
+    the card: bitwise its plain version with the cell's firing counters
+    and with every unit habituated; device ms of the kernel and of the
+    plain version, the bound (the table, the counters, the flags and the
+    states, each byte once), device launches per call and the device
+    memory a call allocates beyond what was allocated before it."""
+    import torch
+    from repro_torch import gson
+    from repro_torch.configs import soam_paper
+    from repro_torch.core.gson.topology import (compute_topo_states,
+                                                compute_topo_states_plain)
+    specs = {"sphere4k.fleet64": gson.RunSpec(),
+             "paper.fleet32": soam_paper.paper_spec()}
+    out = {}
+    for cell, B in REFRESH_CELLS:
+        spec = specs[cell].replace(max_iterations=REFRESH_ITERS)
+        fleet = gson.FleetSession(gson.FleetSpec.broadcast(
+            spec, seeds=range(B)))
+        fleet.run()
+        nets = fleet.cohorts[0].fstate.nets
+        _, C, K = nets.nbr.shape
+        thr = fleet.cohorts[0].params.firing_threshold
+        args = (nets.nbr, nets.active, nets.firing, thr)
+        for firing in (nets.firing, torch.zeros_like(nets.firing)):
+            a = (nets.nbr, nets.active, firing, thr)
+            assert torch.equal(compute_topo_states(*a),
+                               compute_topo_states_plain(*a)), cell
+        extra = {}
+        for name, fn in (("kernel", compute_topo_states),
+                         ("plain", compute_topo_states_plain)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn(*args)
+            torch.cuda.synchronize()
+            extra[name] = torch.cuda.max_memory_allocated() - base
+        ms = device_ms(lambda: compute_topo_states(*args), 50)
+        plain_ms = device_ms(lambda: compute_topo_states_plain(*args), 5)
+        bound, by = bound_ms(B * C * (4 * K + 4 + 1 + 4), 0)
+        launched = device_launches(lambda: compute_topo_states(*args))
+        if launched:
+            want = DEVICE_KERNELS["topo_states"]
+            assert len(launched) == len(want) and all(
+                any(k in n for k in want) for n in launched), (
+                f"topo_states launched {launched}, expected {want}")
+            per_call = f"{len(launched)} device launches per call"
+        else:
+            per_call = "device launches per call not measured"
+        with_edges = int((nets.nbr >= 0).any(dim=-1).sum())
+        units = int(nets.active.sum())
+        out[cell] = dict(B=B, C=C, K=K, units=units,
+                         rows_with_edges=with_edges, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         alloc_bytes=extra["kernel"],
+                         plain_alloc_bytes=extra["plain"])
+        log(f"refresh {cell} (B={B}, C={C}, K={K}, {units} units, "
+            f"{with_edges} rows with edges, {REFRESH_ITERS} it): kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.5f} ms "
+            f"({by}, {100 * bound / ms:.1f}% of it)  {per_call}; allocates "
+            f"{extra['kernel'] / 2**20:.2f} MiB (plain "
+            f"{extra['plain'] / 2**30:.2f} GiB); bitwise the plain version")
+    return out
 
 
 def hold_find_winners_shapes(state) -> dict:
@@ -685,10 +764,12 @@ def hold_kernels(state, params, tag: str):
 
 def counters():
     from repro_torch.kernels.find_winners import kernel as fwk
+    from repro_torch.kernels.topo_states import kernel as tsk
     from repro_torch.kernels.update_phase import kernel as upk
     wrappers = {"find_winners": fwk.find_winners_top2,
                 "winner_lock": upk.winner_lock_min,
-                "update_accum": upk.update_accum}
+                "update_accum": upk.update_accum,
+                "topo_states": tsk.topo_states}
     return {**wrappers, **{k: wrappers[v] for k, v in SHARED.items()}}
 
 
@@ -704,6 +785,26 @@ def read_counters(path: str, must: tuple) -> dict:
     for name in must:
         assert got[name] > 0, f"kernel {name} was not launched on the {path}"
     return got
+
+
+@contextlib.contextmanager
+def every_refresh_launches(path: str):
+    """Tracing on inside the block: the ``gson.refresh`` spans it logs (one
+    per SOAM refresh) must equal the ladder kernel's launches in it."""
+    from repro_torch.kernels.topo_states import topo_states
+    from repro_torch.utils import timing
+    before = topo_states.launches
+    with timing.tracing(True):
+        timing.clear()
+        yield
+        refreshes = sum(s[0] == "gson.refresh" for s in timing.spans())
+        timing.clear()
+    got = topo_states.launches - before
+    assert got == refreshes > 0, (
+        f"{path}: {got} launches of the ladder kernel for {refreshes} "
+        f"refreshes")
+    log(f"  {path}: {refreshes} SOAM refreshes, {got} launches of the "
+        f"ladder kernel")
 
 
 def check_state(st):
@@ -786,9 +887,10 @@ def phase_main_path():
     for f in cnt.values():
         f.launches = 0
     runs = {}
-    for variant in ("multi", "multi-fused"):
-        spec = gson.RunSpec(variant=variant)
-        runs[variant] = run_session(spec, SEED, MAIN_ITERS)
+    with every_refresh_launches("main path"):
+        for variant in ("multi", "multi-fused"):
+            spec = gson.RunSpec(variant=variant)
+            runs[variant] = run_session(spec, SEED, MAIN_ITERS)
     launches = {name: f.launches for name, f in cnt.items()}
     log(f"main path launches: {launches}")
     for name, n in launches.items():
@@ -1007,16 +1109,19 @@ def phase_fleet():
         torch.cuda.synchronize()
         for f in wrappers.values():
             f.launches = 0
-        t0 = time.perf_counter()
-        fleet.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with every_refresh_launches(f"fleet {variant}"):
+            t0 = time.perf_counter()
+            fleet.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         launches = {n: f.launches for n, f in wrappers.items()}
         assert list(fleet.iterations) == [FLEET_ITERS] * FLEET_B, \
             fleet.iterations
-        assert all(n == FLEET_ITERS for n in launches.values()), (
+        assert all(n == FLEET_ITERS for k, n in launches.items()
+                   if k not in PER_REFRESH), (
             f"{variant}: {launches} launches in {FLEET_ITERS} fleet "
-            "iterations, expected one per iteration")
+            "iterations, expected one per iteration (the ladder kernel's: "
+            "one per refresh)")
         worst = 0.0
         for i, sess in enumerate(sessions):
             st, stats = fleet.result(i)
@@ -1027,7 +1132,8 @@ def phase_fleet():
         rate8 = FLEET_B * FLEET_ITERS / wall
         out[variant] = (rate1, rate8, launches)
         log(f"fleet {variant}: B={FLEET_B} x {FLEET_ITERS} it, launches "
-            f"{launches} (one per fleet iteration); {FLEET_B}/{FLEET_B} "
+            f"{launches} (one per fleet iteration, the ladder kernel one per "
+            f"refresh); {FLEET_B}/{FLEET_B} "
             f"networks equal to their sessions (state fields bitwise, "
             f"rows equal, qe max rel diff {worst:.3g}); network-it/s "
             f"B=1 {rate1:.1f} (eight sessions), B={FLEET_B} {rate8:.1f} "
@@ -1500,7 +1606,8 @@ def phase_paper():
     spec = soam_paper.paper_spec().replace(max_iterations=PAPER_ITERS)
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
-    sess, st, stats, wall, chi = run_session(spec, SEED, None)
+    with every_refresh_launches("paper path"):
+        sess, st, stats, wall, chi = run_session(spec, SEED, None)
     launches = read_counters("paper path", tuple(counters()))
     check_state(st)
     log(f"paper (capacity {st.capacity}, m up to "
@@ -3420,11 +3527,14 @@ def phase_profile(iters: int = 32, fleet_iters: int = 16):
         for o in names:
             n = sum(cnt for k, (cnt, _) in kernels.items() if o in k)
             per_it[o] = n / fleet_iters
+        if wrapper in PER_REFRESH:
+            continue
         assert all(per_it[o] == 1 for o in names), (
             f"{wrapper} at B={FLEET_B}: {[per_it[o] for o in names]} "
             f"launches of {names} per fleet iteration, expected 1 each")
     log(f"  the port's device launches per fleet iteration at "
-        f"B={FLEET_B}: {per_it} (one of each for the whole batch)")
+        f"B={FLEET_B}: {per_it} (one of each for the whole batch; the "
+        f"ladder kernel's one per refresh)")
     for name, (_, us) in sorted(kernels.items(),
                                 key=lambda kv: -kv[1][1])[:6]:
         log(f"  {us / fleet_iters:9.1f} us/it  {name[:90]}")
@@ -3458,6 +3568,7 @@ def main() -> int:
         timed(phase_environment)
         timed(phase_build)
         results = timed(phase_kernels)
+        refresh = timed(phase_refresh)
         launches, multi_rate = timed(phase_main_path)
         timed(phase_paired_timing)
         timed(phase_fleet_kernels)
@@ -3509,6 +3620,13 @@ def main() -> int:
                   "bound_ms": paper[name]["bound"],
                   "max_abs_err": paper[name]["err"]},
     } for name, r in results.items()]
+    kernels.append({
+        "name": "topo_states", "route": "cuda",
+        "source": str(_build.SOURCES["topo_states"].relative_to(ROOT)),
+        "replaces": None, "launches": launches["topo_states"],
+        "paths": {path: n.get("topo_states", 0) for path, n in paths.items()},
+        "shapes": refresh,
+    })
     log(f"phase seconds: {seconds}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(nvidia_smi_line())

@@ -26,6 +26,7 @@ from repro_torch.core.gson.batch import add, batchable, put, take
 from repro_torch.core.gson.state import (ACTIVE, CONNECTED, DISK,
                                          HABITUATED, HALF_DISK, NO_NBR,
                                          PATCH, SINGULAR)
+from repro_torch.kernels.topo_states.kernel import topo_states
 
 _BIG = 2 ** 30
 _INT32_MAX = 2 ** 31 - 1
@@ -272,9 +273,9 @@ def _is_connected(m: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 @batchable(3)
-def compute_topo_states(nbr: torch.Tensor, active: torch.Tensor,
-                        firing: torch.Tensor,
-                        firing_threshold: float) -> torch.Tensor:
+def compute_topo_states_plain(nbr: torch.Tensor, active: torch.Tensor,
+                              firing: torch.Tensor,
+                              firing_threshold: float) -> torch.Tensor:
     """Full-network SOAM state ladder (vectorized over all capacity rows
     of every network).
 
@@ -315,3 +316,18 @@ def compute_topo_states(nbr: torch.Tensor, active: torch.Tensor,
     nb_ok = torch.where(valid, nb_disk, True).all(dim=-1)
     state = put_state((state == DISK) & nb_ok, PATCH, state)
     return put_state(active, state, torch.full_like(state, ACTIVE))
+
+
+@batchable(3)
+def compute_topo_states(nbr: torch.Tensor, active: torch.Tensor,
+                        firing: torch.Tensor,
+                        firing_threshold: float) -> torch.Tensor:
+    """The SOAM state ladder of every slot: (B, C) int32 states, inactive
+    rows ACTIVE. On CUDA the hand-written kernel (``kernels/topo_states``),
+    which raises for what it does not take; on the CPU
+    ``compute_topo_states_plain``, of which the kernel's states are bitwise
+    copies."""
+    if nbr.device.type == "cpu":
+        return compute_topo_states_plain(nbr, active, firing,
+                                         firing_threshold)
+    return topo_states(nbr, active, firing, firing_threshold)

@@ -29,6 +29,7 @@ _KERNELS = Path(__file__).resolve().parent
 SOURCES = {
     "find_winners": _KERNELS / "find_winners" / "csrc" / "find_winners.cu",
     "update_phase": _KERNELS / "update_phase" / "csrc" / "update_phase.cu",
+    "topo_states": _KERNELS / "topo_states" / "csrc" / "topo_states.cu",
 }
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -31,11 +31,15 @@ from repro_torch.core.gson.multi import (find_winners_reference,
                                          multi_signal_step, stable_units,
                                          update_phase_inputs,
                                          update_phase_reference)
-from repro_torch.core.gson.topology import edge_slots
+from repro_torch.core.gson.topology import (compute_topo_states,
+                                            compute_topo_states_plain,
+                                            edge_slots)
 from repro_torch.core.gson.sampling import make_sampler
 from repro_torch.core.gson.state import GSONParams, init_state, stack_states
 from repro_torch.gson import autotune
 from repro_torch.kernels import _build
+from repro_torch.kernels.topo_states import topo_states
+from repro_torch.kernels.topo_states.kernel import threshold_bits
 from repro_torch.kernels.find_winners import (compact_active,
                                               compact_active_plain,
                                               find_winners_top2,
@@ -1482,6 +1486,217 @@ def test_lm_train_step_on_card_equals_the_cpu(cuda_device, arch):
         assert out["card"][0][k].device.type == cuda_device.type
         diff = (out["card"][0][k].cpu() - out["cpu"][0][k]).abs().max()
         assert float(diff) <= 2 * tcfg.opt.lr + 1e-6, k
+
+
+# ---------------------------------------------------------------------------
+# the SOAM refresh's state ladder (kernels/topo_states)
+
+_RING = [(i, i % 5 + 1) for i in range(1, 6)]
+ICOSAHEDRON = ([(0, i) for i in range(1, 6)] + _RING
+               + [(i, i + 5) for i in range(1, 6)]
+               + [(i, i % 5 + 6) for i in range(1, 6)]
+               + [(a + 5, b + 5) for a, b in _RING]
+               + [(11, i) for i in range(6, 11)])
+OCTAHEDRON = [(a, b) for a in range(6) for b in range(a + 1, 6)
+              if b != a + 1 or a % 2]
+TETRAHEDRON = [(a, b) for a in range(4) for b in range(a + 1, 4)]
+FAN = [(0, 1), (0, 2), (0, 3), (0, 4), (1, 2), (2, 3), (3, 4)]
+TWO_PAIRS = [(0, 1), (0, 2), (0, 3), (0, 4), (1, 2), (3, 4)]
+OVERLINKED = [(0, i) for i in (1, 2, 3, 4)] + [(1, 2), (1, 3), (1, 4),
+                                               (2, 3), (3, 4), (2, 4)]
+TWO_TRIANGLES = [(0, i) for i in range(1, 7)] + [(1, 2), (2, 3), (3, 1),
+                                                 (4, 5), (5, 6), (6, 4)]
+
+
+def ladder_tables(K: int, seed: int, C: int = 96):
+    """(nbr, active, firing) of three networks for the state ladder at
+    threshold 0.3: random ids, some >= C; hand-built neighborhoods (closed
+    surfaces, a fan, two linked pairs, an overlinked one, two triangles, a
+    tetrahedron whose last row its rows name by an id >= C, rows of degree
+    1 and 2, a full row) with inactive rows that keep their edges and a
+    firing counter equal to the threshold in float32; an empty network.
+    For K >= 6 every state of the ladder occurs."""
+    g = np.random.default_rng(seed)
+    nbr = np.full((3, C, K), -1, np.int32)
+    nbr[0] = np.where(g.random((C, K)) < 0.5, -1,
+                      g.integers(0, C + 4, (C, K)))
+    net = nbr[1]
+
+    def link(edges, off):
+        for a, b in edges:
+            a, b = a + off, b + off
+            fa, fb = np.flatnonzero(net[a] < 0), np.flatnonzero(net[b] < 0)
+            if len(fa) and len(fb):
+                net[a, fa[0]], net[b, fb[0]] = b, a
+
+    row = 0
+    for edges in (ICOSAHEDRON, OCTAHEDRON, TETRAHEDRON, FAN, TWO_PAIRS,
+                  OVERLINKED, TWO_TRIANGLES):
+        link(edges, row)
+        row += 1 + max(max(e) for e in edges)
+    link([(0, 1)], row)                          # two rows of degree 1
+    link([(0, 1), (1, 2)], row + 2)              # a path: degree 2 inside
+    link([(0, i) for i in range(1, K + 1)], row + 5)    # a full row
+    end = row + K + 7
+    net[end - 1, :2] = [C + 3, C][:K]            # ids past the pool
+    link(TETRAHEDRON, C - 4)
+    tail = net[C - 4:C - 1]
+    tail[tail == C - 1] = C + 2                  # row C - 1 named C + 2
+    active = g.random((3, C)) < 0.8
+    active[1, :end] = True
+    active[1, [1, 13, 20]] = False               # inactive, edges kept
+    firing = np.where(g.random((3, C)) < 0.75, 0.05, 0.9).astype(np.float32)
+    firing[1, :end] = firing[1, C - 4:] = 0.05
+    firing[1, 3] = np.float32(0.3)               # the threshold in float32
+    firing[1, C - 1] = 0.9                       # no PATCH beside it
+    return (torch.from_numpy(nbr), torch.from_numpy(active),
+            torch.from_numpy(firing))
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary: the kernel's path without 16-byte loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("K", [4, 12, 16, 32])
+def test_topo_states_kernel_matches_plain_version(cuda_device, K, seed):
+    """The ladder kernel equals the plain version bitwise on random and
+    hand-built tables, with and without 16-byte loads and unbatched; one
+    launch a call, and a repeat call gives the same bits."""
+    nbr, active, firing = (t.to(cuda_device) for t in ladder_tables(K, seed))
+    want = compute_topo_states_plain(nbr, active, firing, 0.3)
+    if K >= 6:
+        assert set(want[1].unique().tolist()) == set(range(7))
+    before = topo_states.launches
+    got = compute_topo_states(nbr, active, firing, 0.3)
+    assert topo_states.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(compute_topo_states(nbr, active, firing, 0.3), got)
+    assert torch.equal(
+        compute_topo_states(_misaligned(nbr), active, firing, 0.3), want)
+    assert torch.equal(
+        compute_topo_states(nbr[1], active[1], firing[1], 0.3), want[1])
+    assert torch.equal(compute_topo_states(nbr, active, firing, 0.05),
+                       compute_topo_states_plain(nbr, active, firing, 0.05))
+
+
+def _grown_fleet(spec, B: int, iterations: int):
+    fleet = gson.FleetSession(gson.FleetSpec.broadcast(
+        spec.replace(max_iterations=iterations), seeds=range(B)))
+    fleet.run()
+    return fleet.cohorts[0].fstate.nets, fleet.cohorts[0].params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["sphere4k.fleet64", "paper.fleet32"])
+def test_topo_states_kernel_on_grown_fleets(cuda_device, cell):
+    """At both benchmark cells' shapes (B = 64, C = 4096; B = 32,
+    C = 32768; K = 16), on fleets grown by the card, and with every unit
+    habituated: the kernel equals the plain version bitwise, and a call
+    allocates only its (B, C) output and a (B, C) byte of scratch."""
+    from repro_torch.configs import soam_paper
+    spec, B = ((gson.RunSpec(), 64) if cell == "sphere4k.fleet64"
+               else (soam_paper.paper_spec(), 32))
+    nets, params = _grown_fleet(spec, B, 64)
+    thr = params.firing_threshold
+    assert nets.nbr.shape[0] == B and nets.nbr.shape[2] == 16
+    for firing in (nets.firing, torch.zeros_like(nets.firing)):
+        want = compute_topo_states_plain(nets.nbr, nets.active, firing, thr)
+        got = compute_topo_states(nets.nbr, nets.active, firing, thr)
+        assert torch.equal(got, want)
+    assert int((want >= 4).sum()) > 0       # DISK or PATCH occur
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    compute_topo_states(nets.nbr, nets.active, nets.firing, thr)
+    torch.cuda.synchronize()
+    out_and_scratch = nets.active.numel() * (4 + 1)
+    assert torch.cuda.max_memory_allocated() - base <= out_and_scratch + 1024
+
+
+@pytest.mark.cuda
+def test_every_refresh_on_the_fleet_path_launches_the_kernel(cuda_device):
+    """A B = 4 fleet: the kernel's launches equal the refreshes (the
+    ``gson.refresh`` spans of the cadence and of the checks)."""
+    from repro_torch.utils import timing
+    spec = gson.RunSpec(capacity=512, max_iterations=40, check_every=10)
+    fleet = gson.FleetSession(gson.FleetSpec.broadcast(spec, seeds=range(4)))
+    fleet.run(budget=0)
+    before = topo_states.launches
+    with timing.tracing(True):
+        timing.clear()
+        fleet.run()
+        refreshes = sum(s[0] == "gson.refresh" for s in timing.spans())
+        timing.clear()
+    assert refreshes >= 40 // 5
+    assert topo_states.launches - before == refreshes
+
+
+@pytest.mark.cuda
+def test_topo_states_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    nbr = torch.full((2, 8, 33), -1, dtype=torch.int32, device=cuda_device)
+    act = torch.ones((2, 8), dtype=torch.bool, device=cuda_device)
+    fir = torch.zeros((2, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="max_deg"):
+        compute_topo_states(nbr, act, fir, 0.3)
+    nbr = nbr[..., :16].contiguous()
+    with pytest.raises(TypeError):
+        compute_topo_states(nbr.long(), act, fir, 0.3)
+    with pytest.raises(TypeError):
+        compute_topo_states(nbr, act, fir.double(), 0.3)
+    with pytest.raises(ValueError):
+        compute_topo_states(nbr.transpose(0, 1), act, fir, 0.3)
+    with pytest.raises(ValueError):
+        compute_topo_states(nbr, act.cpu(), fir, 0.3)
+
+
+@pytest.mark.parametrize("K", [4, 12, 16, 32])
+def test_topo_states_on_the_cpu_is_the_plain_version(K):
+    """On CPU tensors ``compute_topo_states`` runs the plain version and
+    launches nothing."""
+    nbr, active, firing = ladder_tables(K, 0)
+    before = topo_states.launches
+    assert torch.equal(compute_topo_states(nbr, active, firing, 0.3),
+                       compute_topo_states_plain(nbr, active, firing, 0.3))
+    assert topo_states.launches == before
+
+
+def test_topo_states_wrapper_takes_only_cuda_tensors():
+    """The wrapper itself raises for a CPU or meta tensor; a meta tensor
+    goes from ``compute_topo_states`` to the kernel and raises there."""
+    nbr, active, firing = ladder_tables(16, 0)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        topo_states(nbr, active, firing, 0.3)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        compute_topo_states(nbr.to("meta"), active.to("meta"),
+                            firing.to("meta"), 0.3)
+
+
+def test_topo_states_threshold_is_compared_in_float32():
+    """PyTorch compares a float32 tensor with a Python float in float32:
+    the kernel gets the threshold as those float32 bits."""
+    f = torch.tensor([0.3], dtype=torch.float32)
+    above = float(f) + 1e-9                  # rounds to f in float32
+    assert not bool(f < above)
+    assert np.int32(threshold_bits(above)).view(np.float32) == f.numpy()[0]
+    assert threshold_bits(0.3) == int(f.view(torch.int32))
+
+
+def test_build_names_the_topo_states_source():
+    """``build_all`` builds the ladder's source beside the other two."""
+    src = _build.SOURCES["topo_states"]
+    assert src == (ROOT / "src" / "repro_torch" / "kernels" / "topo_states"
+                   / "csrc" / "topo_states.cu")
+    assert src.is_file() and "repro_topo_states" in src.read_text()
+    assert set(_build.SOURCES) == {"find_winners", "update_phase",
+                                   "topo_states"}
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
