@@ -397,53 +397,57 @@ def multi_signal_step(
         eff_old = state.signal_count - state.discarded
         eff_new = eff_old + n_sel
         if is_gng:
-            k_cap = 8  # static cap on inserts per iteration
-            lam = params.gng_lambda
-            n_ins = ((eff_new // lam) - (eff_old // lam)).clamp(0, k_cap)
-            err_masked = torch.where(active, error, -torch.inf)
-            # lax.top_k order: descending, ties to the lower index
-            q_ids = torch.sort(err_masked, dim=-1, descending=True,
-                               stable=True).indices[:, :k_cap]
-            take_q = (torch.arange(k_cap, device=dev) < n_ins[:, None])
-            # worst neighbor f of each q
-            q_nb = take(nbr, q_ids)                               # (B, k, K)
-            q_nb_err = torch.where(q_nb >= 0,
-                                   take(error, q_nb.clamp(0, C - 1).long()),
-                                   -torch.inf)
-            f_slot = q_nb_err.argmax(dim=-1)
-            f_ids = torch.gather(q_nb, -1, f_slot[..., None])[..., 0]
-            take_q = take_q & (f_ids >= 0)
-            rank = torch.cumsum(take_q.to(torch.int32), -1,
-                                dtype=torch.int32) - 1
-            fits = take_q & (rank < n_free)
-            dropped_units = dropped_units + (take_q & ~fits).sum(
-                dim=-1, dtype=torch.int32)
-            new_id = take_free(fits, rank)
-            nid = (new_id.long(),)
-            f_safe = f_ids.clamp(0, C - 1).long()
-            w_new = 0.5 * (take(w, q_ids) + take(w, f_safe))
-            w = put(w, nid, w_new)
-            active = put(active, nid, True)
-            firing = put(firing, nid, 1.0)
-            n_active = n_active + fits.sum(dim=-1, dtype=torch.int32)
-            # error redistribution: one multiplication per hit, in order
-            units = torch.arange(C, device=dev)
-            for ids in (q_ids, f_ids.long()):
-                for j in range(k_cap):
-                    hit = fits[:, j:j + 1] & (units == ids[:, j:j + 1])
-                    error = torch.where(hit, error * params.gng_alpha, error)
-            error = put(error, nid, params.gng_alpha * take(error, q_ids))
-            q32 = q_ids.to(torch.int32)
-            e_a = torch.cat([new_id, new_id], dim=-1)
-            e_b = torch.cat([q32, f_ids], dim=-1)
-            e_m = torch.cat([fits, fits], dim=-1)
-            nbr, age, d3 = topo.insert_edges(nbr, age, e_a, e_b, e_m)
-            nbr, age = topo.remove_edge_pairs(nbr, age, q32, f_ids, fits)
-            dropped_edges = dropped_edges + d3
-            # global error decay, once per effective signal
-            decay = torch.full((), 1.0 - params.gng_beta, dtype=torch.float32,
-                               device=dev)
-            error = error * torch.pow(decay, n_sel.to(torch.float32))[:, None]
+            with span("gson.gng_insert"):
+                k_cap = 8  # static cap on inserts per iteration
+                lam = params.gng_lambda
+                n_ins = ((eff_new // lam)
+                         - (eff_old // lam)).clamp(0, k_cap)
+                err_masked = torch.where(active, error, -torch.inf)
+                # lax.top_k order: descending, ties to the lower index
+                q_ids = torch.sort(err_masked, dim=-1, descending=True,
+                                   stable=True).indices[:, :k_cap]
+                take_q = (torch.arange(k_cap, device=dev) < n_ins[:, None])
+                # worst neighbor f of each q
+                q_nb = take(nbr, q_ids)                       # (B, k, K)
+                q_nb_err = torch.where(
+                    q_nb >= 0, take(error, q_nb.clamp(0, C - 1).long()),
+                    -torch.inf)
+                f_slot = q_nb_err.argmax(dim=-1)
+                f_ids = torch.gather(q_nb, -1, f_slot[..., None])[..., 0]
+                take_q = take_q & (f_ids >= 0)
+                rank = torch.cumsum(take_q.to(torch.int32), -1,
+                                    dtype=torch.int32) - 1
+                fits = take_q & (rank < n_free)
+                dropped_units = dropped_units + (take_q & ~fits).sum(
+                    dim=-1, dtype=torch.int32)
+                new_id = take_free(fits, rank)
+                nid = (new_id.long(),)
+                f_safe = f_ids.clamp(0, C - 1).long()
+                w_new = 0.5 * (take(w, q_ids) + take(w, f_safe))
+                w = put(w, nid, w_new)
+                active = put(active, nid, True)
+                firing = put(firing, nid, 1.0)
+                n_active = n_active + fits.sum(dim=-1, dtype=torch.int32)
+                # error redistribution: one multiplication per hit, in order
+                units = torch.arange(C, device=dev)
+                for ids in (q_ids, f_ids.long()):
+                    for j in range(k_cap):
+                        hit = fits[:, j:j + 1] & (units == ids[:, j:j + 1])
+                        error = torch.where(hit, error * params.gng_alpha,
+                                            error)
+                error = put(error, nid, params.gng_alpha * take(error, q_ids))
+                q32 = q_ids.to(torch.int32)
+                e_a = torch.cat([new_id, new_id], dim=-1)
+                e_b = torch.cat([q32, f_ids], dim=-1)
+                e_m = torch.cat([fits, fits], dim=-1)
+                nbr, age, d3 = topo.insert_edges(nbr, age, e_a, e_b, e_m)
+                nbr, age = topo.remove_edge_pairs(nbr, age, q32, f_ids, fits)
+                dropped_edges = dropped_edges + d3
+                # global error decay, once per effective signal
+                decay = torch.full((), 1.0 - params.gng_beta,
+                                   dtype=torch.float32, device=dev)
+                error = error * torch.pow(
+                    decay, n_sel.to(torch.float32))[:, None]
 
         # ---- 3h. expiry + pruning ------------------------------------------
         nbr, age, _ = topo.expire_edges(nbr, age, params.age_max)
